@@ -1,0 +1,83 @@
+"""Carry avtex's ContrastiveTextures parameters over to the port.
+
+``convert_params(tree, model)`` takes the flax parameter tree of
+``avtex.contrastive.model.ContrastiveTextures`` as a nested dict of numpy
+arrays (with or without the top-level ``"params"`` collection) and returns
+a ``state_dict`` for the port's ``ContrastiveTextures``. It needs neither
+jax nor flax. The port names its modules after the flax tree, so the
+mapping is a renaming plus layout changes:
+
+- ``Conv_k/kernel`` and ``fast_stem_kernel``: DHWIO -> OIDHW;
+- ``Affine_k/{scale,bias}``: unchanged;
+- ``GroupNorm_k/{scale,bias}`` -> ``GroupNorm_k.{weight,bias}``.
+
+Pinned names (avtex/nn/slowfast.py): ``SFBottleneck_{0..}`` interleaved
+slow/fast, top-level ``Conv_0`` (slow stem) and ``Conv_1..4`` (laterals),
+``Affine_0..5`` / ``GroupNorm_0..5``. Unknown and missing keys raise,
+listing them; so do shape mismatches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_OIDHW = (4, 3, 0, 1, 2)
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def _torch_key(path: Tuple[str, ...], value: np.ndarray
+               ) -> Tuple[str, np.ndarray]:
+    *mods, leaf = path
+    if leaf == "fast_stem_kernel" or (leaf == "kernel" and mods
+                                      and mods[-1].startswith("Conv_")):
+        if value.ndim != 5:
+            raise ValueError(f"{'/'.join(path)}: expected a 5-D DHWIO conv "
+                             f"kernel, got shape {value.shape}")
+        name = leaf if leaf == "fast_stem_kernel" else "weight"
+        return ".".join(mods + [name]), value.transpose(_OIDHW)
+    if mods and mods[-1].startswith("Affine_") and leaf in ("scale", "bias"):
+        return ".".join(mods + [leaf]), value
+    if mods and mods[-1].startswith("GroupNorm_") and leaf in ("scale",
+                                                               "bias"):
+        return ".".join(mods + ["weight" if leaf == "scale" else "bias"]), \
+            value
+    raise KeyError("/".join(path))
+
+
+def convert_params(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """avtex ContrastiveTextures params (numpy tree) -> the port's state_dict
+    for ``model`` (float32 tensors; ``load_state_dict`` casts them)."""
+    if "params" in tree and len(tree) == 1:
+        tree = tree["params"]
+    expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    unknown = []
+    for path, value in _flatten(tree):
+        try:
+            key, arr = _torch_key(path, value)
+        except KeyError:
+            unknown.append("/".join(path))
+            continue
+        if key not in expected:
+            unknown.append("/".join(path))
+            continue
+        if tuple(arr.shape) != expected[key]:
+            raise ValueError(f"{'/'.join(path)} -> {key}: shape "
+                             f"{tuple(arr.shape)} != {expected[key]}")
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    missing = sorted(set(expected) - set(out))
+    if unknown or missing:
+        raise KeyError(f"parameter trees do not match: unknown avtex keys "
+                       f"{sorted(unknown)}; missing port keys {missing}")
+    return out

@@ -1,0 +1,9 @@
+"""Host-side media I/O: video decode/encode (OpenCV, imported at use),
+wav (scipy) and AVI muxing."""
+
+from .audio_io import read_wav, write_wav
+from .mux import mux_audio_video, save_texture_outputs
+from .video import read_video, video_fps, write_video
+
+__all__ = ["read_video", "video_fps", "write_video", "read_wav",
+           "write_wav", "mux_audio_video", "save_texture_outputs"]

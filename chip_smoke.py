@@ -1,0 +1,410 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (avtex_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seconds 60]
+
+Run from the repository root. It builds the kernels itself and imports
+nothing of JAX or of the avtex package. Phases (a failing phase exits
+non-zero, and no result line is printed):
+
+1. device report: torch's device name and the line of
+   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
+2. build: every CUDA source under avtex_torch/csrc, one nvcc each, in
+   parallel;
+3. fused_conv1x1 against its plain version on the card, at every shape
+   the main path gives it (captured from a forward pass of the
+   full-width encoder, scaled to the main path's batch) plus ragged
+   edges; kernel, plain-version and torch.matmul (product only) times;
+4. the full-width SlowFast-R50 (norm="affine", bf16) with the kernel
+   (fuse="all") against cuDNN 1x1 convs (fuse=False) on 8 clips at 224^2:
+   cosine similarity >= 0.999;
+5. the main path: TextureServer.from_frames on a synthetic 60 s, 30 fps,
+   224^2 video (bench.py's moving gradients; L = 297 segments), both
+   towers at batch 150 with seeded flax-style weights; the launch counter
+   must read 42 per batch; then three requests, the third repeating the
+   first (identical indices), stitched with the crossfade.
+
+It ends with a JSON line describing each kernel, the nvidia-smi line, and
+``{"ok": true, "device": {...}}`` as the last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# NVIDIA H100 SXM data sheet (dense): bf16 tensor cores, HBM3 bandwidth.
+PEAK_BF16_FLOP_S = 989e12
+PEAK_BYTES_S = 3.35e12
+LAUNCHES_PER_BATCH = 42  # 21 eligible 1x1 convs per tower, two towers
+# Kernel vs plain version: both round an fp32 sum to bf16 once, so they
+# may land one bf16 ulp apart (2^-7 relative), plus slack for the order
+# of the fp32 accumulation.
+ULP_REL = 2.0 ** -7
+ACC_ABS = 1e-3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """TF32 off for the plain version's fp32 product, and the library
+    defaults back afterwards, so the main path runs as a user's would."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def bound_times(M: int, K: int, N: int, residual: bool):
+    """(bytes ms, operations ms) of the fused call: the bytes it must move
+    (each input read once, the output written once) over the HBM rate, and
+    its 2MKN operations over the bf16 tensor-core peak. The larger bounds
+    the call."""
+    nbytes = 2 * (M * K + N * K + M * N + (M * N if residual else 0)) + 8 * N
+    return (nbytes / PEAK_BYTES_S * 1e3,
+            2 * M * K * N / PEAK_BF16_FLOP_S * 1e3)
+
+
+def synthetic_video(seconds: int, fps: int = 30, res: int = 224):
+    """bench.py's structured video: moving sin/cos gradients, uint8 RGB."""
+    yy, xx = np.mgrid[0:res, 0:res]
+    base = np.sin(xx / 17.0)[None] + np.cos(yy / 13.0)[None]
+    phase = np.sin(np.arange(fps * seconds) / 9.0)
+    video = np.clip(127 + 80 * base * phase[:, None, None], 0, 255)
+    return video[..., None].repeat(3, -1).astype(np.uint8)
+
+
+def capture_kernel_calls(enc, slow, fast):
+    """(rows, K, N, residual, relu) of every fused_conv1x1 call that one
+    forward pass of ``enc`` makes."""
+    import torch
+    import avtex_torch.nn.slowfast as sfmod
+    calls = []
+    real = sfmod.fused_conv1x1
+
+    def recording(x, weight, scale, bias, residual=None, relu=True):
+        calls.append((x.shape[0], x.shape[1], weight.shape[0],
+                      residual is not None, bool(relu)))
+        return real(x, weight, scale, bias, residual=residual, relu=relu)
+
+    sfmod.fused_conv1x1 = recording
+    try:
+        with torch.inference_mode():
+            enc(slow, fast)
+    finally:
+        sfmod.fused_conv1x1 = real
+    return calls
+
+
+def check_kernel_shape(M, K, N, residual, relu, timed, seed):
+    import torch
+    from avtex_torch.ops import fused_conv1x1, fused_conv1x1_reference
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(N, K, generator=g, device=dev) * K ** -0.5).to(
+        torch.bfloat16)
+    scale = torch.rand(N, generator=g, device=dev) + 0.5
+    bias = torch.randn(N, generator=g, device=dev) * 0.1
+    r = (torch.randn(M, N, generator=g, device=dev).to(torch.bfloat16)
+         if residual else None)
+    got = fused_conv1x1(x, w, scale, bias, r, relu)
+    torch.cuda.synchronize()
+    with fp32_exact():
+        want = fused_conv1x1_reference(x, w, scale, bias, r, relu)
+    got32, want32 = got.float(), want.float()
+    diff = (got32 - want32).abs()
+    tol = ULP_REL * torch.maximum(got32.abs(), want32.abs()) + ACC_ABS
+    res = {"M": M, "K": K, "N": N, "residual": residual, "relu": relu,
+           "max_abs_err": float(diff.max()),
+           "max_rel_err": float((diff / want32.abs().clamp_min(1e-2)).max()),
+           "within_tol": bool((diff <= tol).all())}
+    del got, want, got32, want32, diff, tol
+    if timed:
+        res["ms"] = time_ms(lambda: fused_conv1x1(x, w, scale, bias, r,
+                                                  relu), reps=10)
+        with fp32_exact():
+            res["plain_ms"] = time_ms(lambda: fused_conv1x1_reference(
+                x, w, scale, bias, r, relu), reps=3, warmup=1)
+        res["matmul_ms"] = time_ms(lambda: torch.matmul(x, w.t()), reps=10)
+        t_bytes, t_ops = bound_times(M, K, N, residual)
+        res.update(bytes_ms=t_bytes, ops_ms=t_ops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seconds", type=int, default=60,
+                    help="length of the synthetic video (>= 20)")
+    args = ap.parse_args()
+    if args.seconds < 20:
+        ap.error("--seconds must be at least 20")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
+              file=sys.stderr)
+        return 1
+    from avtex_torch.config import Config
+    from avtex_torch.data.preprocess import preprocess_clip
+    from avtex_torch.nn.slowfast import SlowFastR50, slowfast_pathways
+    from avtex_torch.ops import _build, launch_counts, reset_launch_counts
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.synth.embeddings import precompute_embeddings_from_video
+    from avtex_torch.synth.pipeline import init_params_for_synthesis
+
+    t_start = time.perf_counter()
+
+    # ---- 1. device report ------------------------------------------------ #
+    smi = nvidia_smi_line()
+    log(f"[1] device: {torch.cuda.get_device_name(0)} "
+        f"(count {torch.cuda.device_count()}), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    log(smi)
+
+    # ---- 2. build --------------------------------------------------------- #
+    t0 = time.perf_counter()
+    report = _build.build_all(verbose=True)
+    log(f"[2] build: {time.perf_counter() - t0:.2f} s for "
+        f"{len(report)} source(s)")
+    for name, rep in report.items():
+        for line in rep["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"    {name}: {line.strip()}")
+
+    # ---- 3. kernel vs plain version -------------------------------------- #
+    fps, res = 30, 224
+    cfg = Config(enc_arch="slowfast", norm="affine", mini_batchsize=150,
+                 seed=0).derive_geometry(fps)
+    W, S = cfg.window, cfg.stride
+    video = synthetic_video(args.seconds, fps, res)
+    L = (len(video) - W) // S
+    n_batches = -(-L // cfg.mini_batchsize)
+    batch = min(cfg.mini_batchsize, ((-(-L // n_batches) + 7) // 8) * 8)
+    n_batches = -(-L // batch)
+
+    enc = SlowFastR50(norm="affine", fuse="all")
+    state = init_params_for_synthesis(cfg, enc)
+    enc.load_state_dict(state)
+    enc = enc.cuda().eval()
+    video_dev = torch.from_numpy(video).cuda()
+    idx = (torch.arange(8, device="cuda")[:, None] * (L // 8) * S
+           + torch.arange(W, device="cuda")[None])
+    clips = slowfast_pathways(preprocess_clip(video_dev[idx], res, True))
+    per_clip = capture_kernel_calls(enc, clips[0][:1], clips[1][:1])
+    if len(per_clip) != LAUNCHES_PER_BATCH // 2:
+        raise AssertionError(f"one tower launches the kernel "
+                             f"{len(per_clip)} times, expected "
+                             f"{LAUNCHES_PER_BATCH // 2}")
+    shapes = {}
+    for call in per_clip:
+        shapes[call] = shapes.get(call, 0) + 1
+    log(f"[3] kernel vs plain at the main path's batch {batch} "
+        f"({len(shapes)} shapes, {len(per_clip)} launches per tower); "
+        f"tolerance {ULP_REL:g}*|out| + {ACC_ABS:g}")
+    rows = []
+    for i, ((m1, K, N, resid, relu), count) in enumerate(shapes.items()):
+        r = check_kernel_shape(m1 * batch, K, N, resid, relu, True, i)
+        r["per_tower"] = count
+        rows.append(r)
+        log(f"    M={r['M']:>8} K={K:>5} N={N:>5} res={int(resid)} "
+            f"relu={int(relu)} x{count}: err {r['max_abs_err']:.3g} "
+            f"(rel {r['max_rel_err']:.3g}) ms {r['ms']:.4f} "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"plain {r['plain_ms']:.4f} matmul {r['matmul_ms']:.4f}")
+    ragged = [(1000, 320, 128, False, True), (392 * 3, 1280, 2048, False,
+                                              False),
+              (777, 128, 512, True, True), (300, 104, 200, True, True),
+              (129, 24, 200, False, True)]
+    for j, (M, K, N, resid, relu) in enumerate(ragged):
+        r = check_kernel_shape(M, K, N, resid, relu, False, 100 + j)
+        rows.append(r)
+        log(f"    ragged M={M} K={K} N={N} res={int(resid)} "
+            f"relu={int(relu)}: err {r['max_abs_err']:.3g}")
+    bad = [r for r in rows if not r["within_tol"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+
+    # ---- 4. encoder with and without the kernel -------------------------- #
+    plain = SlowFastR50(norm="affine", fuse=False)
+    plain.load_state_dict(state)
+    plain = plain.cuda().eval()
+    with torch.inference_mode():
+        a, b = enc(*clips), plain(*clips)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    log(f"[4] encoder fuse='all' vs fuse=False on 8 clips: cosine min "
+        f"{float(cos.min()):.6f}, feature shape {tuple(a.shape)}")
+    if a.shape != (8, 2304) or not torch.isfinite(a).all() \
+            or float(cos.min()) < 0.999:
+        raise AssertionError("encoder with the kernel disagrees with cuDNN")
+    del enc, plain, a, b, clips, video_dev
+    torch.cuda.empty_cache()
+
+    # ---- 5. the main path ------------------------------------------------ #
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = TextureServer.from_frames(cfg, video, float(fps),
+                                       device="cuda")
+    load_s = time.perf_counter() - t0
+    launches = launch_counts()["fused_conv1x1"]
+    log(f"[5] TextureServer.from_frames: {load_s:.2f} s (init + first "
+        f"embed), L={server.L}, {n_batches} batches of {batch}, "
+        f"kernel launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; library "
+        f"defaults: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    if launches != LAUNCHES_PER_BATCH * n_batches:
+        raise AssertionError(f"kernel launched {launches} times, expected "
+                             f"{LAUNCHES_PER_BATCH * n_batches}")
+    for name, tab in (("query", server.q_table), ("target", server.t_table)):
+        norms = torch.linalg.vector_norm(tab, dim=-1)
+        if (tuple(tab.shape) != (L, 2304) or not torch.isfinite(tab).all()
+                or float((norms - 1).abs().max()) > 1e-3):
+            raise AssertionError(f"{name} table is wrong: {tuple(tab.shape)}")
+
+    def embed():
+        out = precompute_embeddings_from_video(
+            server.model, server.video, W, S, L, img_size=res,
+            batch_size=cfg.mini_batchsize)
+        torch.cuda.synchronize()
+        return out
+
+    embed_times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        embed()
+        embed_times.append(time.perf_counter() - t0)
+    embed_s = min(embed_times)
+    log(f"    warm embed (both towers): {embed_s:.3f} s "
+        f"(runs {', '.join(f'{t:.3f}' for t in embed_times)}), "
+        f"{2 * L / embed_s:.1f} clips/s")
+    profile_embed(embed, embed_s)
+
+    requests = [dict(seconds=10, seed=1),
+                dict(seconds=30, threshold=0.2, seed=2),
+                dict(seconds=10, seed=1)]
+    outs = []
+    for req in requests:
+        out = server.synthesize(**req)
+        frames, intp = out["frames"], out["frames_intp"]
+        if (frames.dtype != np.uint8 or frames.shape[1:] != (res, res, 3)
+                or len(frames) < req["seconds"] * fps or intp is None):
+            raise AssertionError(f"bad texture for {req}")
+        outs.append(out)
+        t = out["timings"]
+        log(f"    request {req}: {len(out['result'].indices)} steps, "
+            f"{int(out['result'].jumps[1:].sum())} jumps, {len(frames)} "
+            f"frames ({len(intp)} interpolated), walk {t['walk_s']:.4f} s, "
+            f"stitch {t['stitch_s']:.4f} s")
+    if not np.array_equal(outs[0]["result"].indices,
+                          outs[2]["result"].indices):
+        raise AssertionError("a repeated request gave other indices")
+
+    main_rows = [r for r in rows if "per_tower" in r]
+
+    def per_tower(key):
+        return sum(r[key] * r["per_tower"] for r in main_rows)
+
+    kernel = {
+        "name": "fused_conv1x1", "route": "cuda",
+        "source": "avtex_torch/csrc/fused_conv1x1.cu",
+        "replaces": "avtex/ops/fused_matmul.py:192",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_tower("ms"), "plain_ms": per_tower("plain_ms"),
+        "bound_ms": per_tower("bound_ms"),
+        "bound_by": ("bytes" if per_tower("bytes_ms") >= per_tower("ops_ms")
+                     else "operations"),
+        "library_ms": None, "matmul_ms": per_tower("matmul_ms"),
+        "per": f"one tower forward at batch {batch} "
+               f"({LAUNCHES_PER_BATCH // 2} launches)",
+    }
+    log(f"done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def profile_embed(embed, wall_s: float) -> None:
+    """Device time of one warm embed by kernel and by op (torch.profiler);
+    the busy share is kernel time over the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        embed()
+
+    def dev_ms(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0)) / 1e3
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(dev_ms(e), e.count, e.key) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda and dev_ms(e) > 0]
+    total = sum(k[0] for k in kernels)
+    if not total:
+        log("    profiler: no device time recorded")
+        return
+    fused = sum(k[0] for k in kernels if "fused_conv1x1" in k[2])
+    log(f"    profiled warm embed: kernels {total:.1f} ms on the device = "
+        f"{100 * total / (wall_s * 1e3):.1f}% of the unprofiled wall "
+        f"{wall_s * 1e3:.1f} ms; fused_conv1x1 {fused:.1f} ms "
+        f"({100 * fused / total:.1f}%)")
+    for ms, count, key in sorted(kernels, reverse=True)[:8]:
+        log(f"      kernel {ms:9.2f} ms {100 * ms / total:5.1f}% "
+            f"x{count:<4} {key[:80]}")
+    ops = [(dev_ms(e), e.count, e.key, e.input_shapes)
+           for e in prof.key_averages(group_by_input_shape=True)
+           if getattr(e, "device_type", None) != cuda and dev_ms(e) > 0]
+    for ms, count, key, shapes in sorted(ops, reverse=True)[:12]:
+        log(f"      op {ms:9.2f} ms {100 * ms / total:5.1f}% x{count:<4} "
+            f"{key} {str(shapes[:2])[:90]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())
