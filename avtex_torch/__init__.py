@@ -17,7 +17,10 @@ Device contract: entry points run on ``cuda`` unless the caller passes
 (``avtex_torch.device.resolve_device``).
 
 Ported so far: contrastive synthesis with SlowFast-R50 (``-m 1 -e``,
-``norm="affine"``), served warm by ``avtex_torch.synth.TextureServer``.
+``norm="affine"``), served warm by ``avtex_torch.synth.TextureServer``;
+the classic Schödl baseline with RGB features, modes 1-3
+(``avtex_torch.classic.run_classic_frames``, ``python -m
+avtex_torch.cli.classic_main``).
 """
 
 __version__ = "0.1.0"

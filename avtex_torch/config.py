@@ -1,4 +1,6 @@
-"""Single dataclass config (the port's own copy of ``avtex/config.py``).
+"""Dataclass configs (the port's own copy of ``avtex/config.py``):
+``Config`` for contrastive synthesis, ``ClassicConfig`` for the classic
+baseline.
 
 Mirrors the reference's argparse surface so every flag (-m, -w, -stride,
 -temp, -th, -alpha, -e, ...) has a field with the same default. The
@@ -120,3 +122,36 @@ class Config:
         if self.driving_audio is not None:
             name += f"alpha_{self.alpha}_daf_{self.da_feats}"
         return name
+
+
+@dataclasses.dataclass
+class ClassicConfig:
+    """Config for the classic Schödl baseline (the port's copy of
+    ``avtex/config.py::ClassicConfig``; field names and defaults follow
+    the reference's classic_main flags)."""
+
+    model_type: int = 1                 # -m: (1) Classic (2) Classic+ (3) Classic++
+    vdata: Optional[str] = None
+    adata: Optional[str] = None
+    video_list: Optional[List[str]] = None
+    feats: str = "RGB"                  # -f: RGB | ResNet | ResNet_VGGish
+    slow: bool = False                  # -s: kept for flag parity
+    fps: float = 30.0
+    sr: int = 22050
+    filter_size: int = 40               # -fs: diagonal binomial filter size
+    batch_size: int = 64                # -bs: tile size in slow mode
+    stride: int = 4
+    new_video_length: int = 30          # -nvl (seconds)
+    interpolation: bool = True          # -nintp
+    SF: int = 3
+    sigma: float = 0.5
+    threshold: float = 0.08             # -t
+    sigmas: Sequence[float] = (4.45, 4.5, 4.52, 4.55, 4.58)  # the sweep
+    q_alpha: float = 0.997              # value-iteration discount
+    q_p: float = 0.7                    # future-cost exponent
+    q_eps: float = 1e-2                 # convergence epsilon
+    start_frame: int = 100              # sampler seed frame
+    seed: int = 0
+    results_folder: str = "results_classic"
+    logdir: str = "./logs"
+    logname: str = "exp_classic"

@@ -22,7 +22,19 @@ non-zero, and no result line is printed):
    224^2 video (bench.py's moving gradients; L = 297 segments), both
    towers at batch 150 with seeded flax-style weights; the launch counter
    must read 42 per batch; then three requests, the third repeating the
-   first (identical indices), stitched with the crossfade.
+   first (identical indices), stitched with the crossfade;
+6. pairwise_l2 against its plain version on the card: the RGB rows of a
+   60 s, 30 fps, 224^2 synthetic video (N = 1800, F = 150528), the same
+   rows normalized, and ragged shapes; squared distances within
+   1e-5 (|x_i|^2 + |x_j|^2) and an exact zero diagonal; kernel, plain and
+   torch.cdist times, and each version's error against an fp64 Gram;
+7. the classic path: run_classic_frames on that video with ClassicConfig()
+   defaults (mode 1, RGB, fs 40, 5 sigmas, 900 steps), then one sigma in
+   mode 2 and twice in mode 3, and one classic_transition_matrix call; the
+   kernel launch count must equal the D1 calls; every P3_new finite,
+   non-negative, with a survivor in every row; every walk transition on a
+   nonzero entry of its row; the repeated run gives identical indices;
+   P3 from the kernel's D1 against P3 from the plain version's D1.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -48,6 +60,19 @@ LAUNCHES_PER_BATCH = 42  # 21 eligible 1x1 convs per tower, two towers
 # of the fp32 accumulation.
 ULP_REL = 2.0 ** -7
 ACC_ABS = 1e-3
+# pairwise_l2: NVIDIA H100 SXM data sheet fp32 rate without tensor cores.
+PEAK_FP32_FLOP_S = 67e12
+# Kernel vs plain on squared distances, relative to |x_i|^2 + |x_j|^2: the
+# scale at which the Gram form cancels (about 80 fp32 ulps of it).
+SQ_TOL = 1e-5
+# P3 from the kernel's D1 vs from the plain version's D1, as a share of the
+# row max. P3 depends on D1 at near-duplicate frames, where the Gram form's
+# D1 is rounding noise (the two versions differ there by ~1e2 against
+# typical distances of ~2e4), and the value iteration adds each row's min
+# -- such an entry -- to a whole column of D3: P3 moves by about
+# dD3 / sigma3 ~ 1e-3 (phase 7 prints each version against an fp64 D1).
+P3_RTOL = 1e-2
+CLASSIC_SECONDS = 60  # phases 6-7 keep N = 1800 whatever --seconds says
 
 
 def log(msg: str) -> None:
@@ -101,6 +126,15 @@ def bound_times(M: int, K: int, N: int, residual: bool):
     nbytes = 2 * (M * K + N * K + M * N + (M * N if residual else 0)) + 8 * N
     return (nbytes / PEAK_BYTES_S * 1e3,
             2 * M * K * N / PEAK_BF16_FLOP_S * 1e3)
+
+
+def pairwise_bound_times(n: int, f: int):
+    """(bytes ms, operations ms) of one pairwise_l2 call: the rows read
+    once and D written once over the HBM rate, and the N(N+1)/2 distinct
+    row products (D is symmetric; the norms are its diagonal) at 2F
+    operations each over the fp32 peak."""
+    return (4 * (n * f + n * n) / PEAK_BYTES_S * 1e3,
+            n * (n + 1) * f / PEAK_FP32_FLOP_S * 1e3)
 
 
 def synthetic_video(seconds: int, fps: int = 30, res: int = 224):
@@ -170,6 +204,72 @@ def check_kernel_shape(M, K, N, residual, relu, timed, seed):
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
     return res
+
+
+def check_pairwise(x, normalize: bool, timed: bool):
+    """pairwise_l2 against its plain version on rows ``x`` (on the card):
+    the largest |Dk^2 - Dp^2| / (sq_i + sq_j), the exact zero diagonal, and
+    each version's error against an fp64 Gram (diagnostic)."""
+    import torch
+    from avtex_torch.ops import pairwise
+    got = pairwise.pairwise_l2(x, normalize=normalize)
+    torch.cuda.synchronize()
+    with fp32_exact():
+        want = pairwise.pairwise_l2_reference(x, normalize=normalize)
+        rows = pairwise._rows(x, normalize)
+        sq32 = (rows * rows).sum(1)
+        one = (sq32[:, None] + sq32[None, :] - 2.0 * (rows @ rows.t()))
+    rows = rows.double()
+    sq = (rows * rows).sum(1)
+    scale = (sq[:, None] + sq[None, :]).clamp_min(1e-30)
+    true = (sq[:, None] + sq[None, :] - 2.0 * (rows @ rows.t())).clamp_min(0)
+    true.fill_diagonal_(0.0)
+    one = one.double().clamp_min(0)
+    one.fill_diagonal_(0.0)
+    del rows
+
+    def ratio(a2, b2):
+        return float(((a2 - b2).abs() / scale).max())
+
+    got2, want2 = got.double() ** 2, want.double() ** 2
+    res = {"N": x.shape[0], "F": x.shape[1], "normalize": normalize,
+           "max_abs_err": float((got - want).abs().max()),
+           "sq_ratio": ratio(got2, want2),
+           "kernel_vs_fp64": ratio(got2, true),
+           "plain_vs_fp64": ratio(want2, true),
+           "one_product_vs_fp64": ratio(one, true),
+           "diag_zero": bool((got.diagonal() == 0).all()),
+           "symmetric": bool((got == got.t()).all())}
+    res["ok"] = (res["sq_ratio"] <= SQ_TOL and res["diag_zero"]
+                 and got.shape == want.shape)
+    del got, want, got2, want2, true, one, scale
+    if timed:
+        n, f = x.shape
+        res["ms"] = time_ms(lambda: pairwise.pairwise_l2(x, normalize),
+                            reps=5)
+        with fp32_exact():
+            res["plain_ms"] = time_ms(lambda: pairwise.pairwise_l2_reference(
+                x, normalize), reps=3, warmup=1)
+            res["library_ms"] = time_ms(lambda: torch.cdist(
+                x, x, compute_mode="use_mm_for_euclid_dist"), reps=3,
+                warmup=1)
+        t_bytes, t_ops = pairwise_bound_times(n, f)
+        res.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   full_square_ms=2 * n * n * f / PEAK_FP32_FLOP_S * 1e3)
+    return res
+
+
+def check_walk(p3: np.ndarray, walk: np.ndarray, advance: int) -> bool:
+    """Every transition lands on a nonzero entry of the row it was sampled
+    from (mode 2 samples from min(chosen + stride, N-1))."""
+    n = len(p3)
+    row = min(int(walk[0]) + advance, n - 1) if advance else int(walk[0])
+    for nxt in walk[1:]:
+        if not p3[row, int(nxt)] > 0:
+            return False
+        row = min(int(nxt) + advance, n - 1) if advance else int(nxt)
+    return True
 
 
 def main() -> int:
@@ -347,7 +447,7 @@ def main() -> int:
     def per_tower(key):
         return sum(r[key] * r["per_tower"] for r in main_rows)
 
-    kernel = {
+    kernels = [{
         "name": "fused_conv1x1", "route": "cuda",
         "source": "avtex_torch/csrc/fused_conv1x1.cu",
         "replaces": "avtex/ops/fused_matmul.py:192",
@@ -360,14 +460,197 @@ def main() -> int:
         "library_ms": None, "matmul_ms": per_tower("matmul_ms"),
         "per": f"one tower forward at batch {batch} "
                f"({LAUNCHES_PER_BATCH // 2} launches)",
-    }
+    }]
+    del server, outs
+    torch.cuda.empty_cache()
+
+    kernels.append(classic_phases())
     log(f"done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def classic_phases() -> dict:
+    """Phases 6 and 7; returns pairwise_l2's entry of the kernels line."""
+    import dataclasses
+
+    import torch
+    import avtex_torch.classic.driver as classic_driver
+    from avtex_torch.classic import (classic_transition_matrix, compute_d1,
+                                     compute_d2, compute_d3, rgb_features)
+    from avtex_torch.config import ClassicConfig
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.ops.pairwise import pairwise_l2_reference
+
+    fps = 30
+    video = synthetic_video(CLASSIC_SECONDS, fps)
+    feats, _ = rgb_features(video, "cuda")
+    n, f = feats.shape
+
+    # ---- 6. pairwise_l2 vs plain version -------------------------------- #
+    log(f"[6] pairwise_l2 vs plain at N={n} F={f} (RGB rows of the "
+        f"{CLASSIC_SECONDS} s video), normalized, and ragged shapes; "
+        f"tolerance |Dk^2 - Dp^2| <= {SQ_TOL:g} (|x_i|^2 + |x_j|^2)")
+    main = check_pairwise(feats, False, True)
+    checks = [main, check_pairwise(feats, True, True)]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for rn in (1, 129, 777):
+        for rf in (3, 1001, 12289, 12292):
+            x = torch.randint(0, 256, (rn, rf), generator=g,
+                              device="cuda").float()
+            checks.append(check_pairwise(x, False, False))
+    for r in checks:
+        line = (f"    N={r['N']:>5} F={r['F']:>6} norm={int(r['normalize'])}"
+                f": sq ratio {r['sq_ratio']:.3g} (kernel vs fp64 "
+                f"{r['kernel_vs_fp64']:.3g}, plain vs fp64 "
+                f"{r['plain_vs_fp64']:.3g}, one fp32 product vs fp64 "
+                f"{r['one_product_vs_fp64']:.3g}), max |Dk-Dp| "
+                f"{r['max_abs_err']:.4g}, diagonal 0 {r['diag_zero']}, "
+                f"symmetric {r['symmetric']}")
+        if "ms" in r:
+            line += (f"; ms {r['ms']:.3f} plain {r['plain_ms']:.3f} "
+                     f"cdist {r['library_ms']:.3f} bound {r['bound_ms']:.3f}"
+                     f" ({r['bound_by']}; the full square "
+                     f"{r['full_square_ms']:.3f})")
+        log(line)
+    bad = [r for r in checks if not r["ok"]]
+    if bad:
+        raise AssertionError(f"pairwise_l2 disagrees with its plain "
+                             f"version: {bad}")
+
+    # ---- 7. the classic path -------------------------------------------- #
+    cfg = ClassicConfig()
+    s0 = cfg.sigmas[0]
+    runs = [("mode 1", cfg),
+            ("mode 2", dataclasses.replace(cfg, model_type=2,
+                                           sigmas=(s0,))),
+            ("mode 3", dataclasses.replace(cfg, model_type=3,
+                                           sigmas=(s0,))),
+            ("mode 3 again", dataclasses.replace(cfg, model_type=3,
+                                                 sigmas=(s0,)))]
+    d1_calls = 0
+    real_compute_d1 = classic_driver.compute_d1
+
+    def counting_compute_d1(*a, **k):
+        nonlocal d1_calls
+        d1_calls += 1
+        return real_compute_d1(*a, **k)
+
+    torch.cuda.reset_peak_memory_stats()
+    classic_driver.compute_d1 = counting_compute_d1
+    reset_launch_counts()
+    try:
+        results = {}
+        for label, rcfg in runs:
+            t0 = time.perf_counter()
+            results[label] = classic_driver.run_classic_frames(
+                rcfg, video, float(fps), out_dir=None, device="cuda")
+            results[label]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = classic_transition_matrix(
+            feats, s0, filter_size=cfg.filter_size, stride=1, p=cfg.q_p,
+            alpha=cfg.q_alpha, eps=cfg.q_eps,
+            thresholding=cfg.threshold).cpu().numpy()
+        fused_s = time.perf_counter() - t0
+        launches = launch_counts()["pairwise_l2"]
+    finally:
+        classic_driver.compute_d1 = real_compute_d1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[7] classic path: {d1_calls} compute_d1 calls + 1 "
+        f"classic_transition_matrix call, pairwise_l2 launches {launches}, "
+        f"peak device memory {peak:.2f} GiB")
+    problems = []
+    if launches != d1_calls + 1:
+        problems.append(f"{launches} launches for {d1_calls + 1} D1 calls")
+    for label, rcfg in runs:
+        out = results[label]
+        log(f"    {label}: {out['wall_s']:.2f} s for {len(rcfg.sigmas)} "
+            f"sigma(s)")
+        adv = rcfg.stride if rcfg.model_type == 2 else 0
+        for sigma, e in out["sigma_results"].items():
+            t, p3 = e["timings"], e["p3_new"]
+            log(f"      sigma {sigma}: N={len(p3)} D1 {t['d1_s']:.4f} s, "
+                f"D2 {t['d2_s']:.4f} s, D3 {t['d3_s']:.4f} s "
+                f"({e['sweeps']} sweeps), fetch {t['fetch_s']:.4f} s, walk "
+                f"{t['walk_s']:.4f} s, bars {t['bars_s']:.4f} s, interp "
+                f"{t['interp_s']:.4f} s; {len(e['walk']) - 1} steps, "
+                f"{e['jump_count']} jumps, {len(e['frames'])} frames"
+                + (f" ({len(e['frames_intp'])} interpolated)"
+                   if e["frames_intp"] is not None else "")
+                + f", survivors per row {int((p3 > 0).sum(1).min())}.."
+                  f"{int((p3 > 0).sum(1).max())}")
+            if not (np.isfinite(p3).all() and (p3 >= 0).all()
+                    and (p3.max(axis=1) > 0).all()):
+                problems.append(f"{label} sigma {sigma}: bad P3_new")
+            if not check_walk(p3, e["walk"], adv):
+                problems.append(f"{label} sigma {sigma}: a transition to a "
+                                f"zero entry")
+            if (e["frames"].dtype != np.uint8
+                    or e["frames"].shape != (len(e["frame_ids"]),)
+                    + video.shape[1:]
+                    or (rcfg.model_type == 1) != (e["frames_intp"]
+                                                  is not None)):
+                problems.append(f"{label} sigma {sigma}: bad texture")
+    again = [e["walk"] for r in ("mode 3", "mode 3 again")
+             for e in results[r]["sigma_results"].values()]
+    if not np.array_equal(*again):
+        problems.append("a repeated run gave other indices")
+    staged = results["mode 1"]["sigma_results"][s0]["p3_new"]
+    if not np.array_equal(fused, staged):
+        problems.append("classic_transition_matrix differs from the "
+                        "staged P3_new of run_classic_frames")
+    log(f"    classic_transition_matrix: {fused_s:.2f} s, equal to the "
+        f"staged P3_new: {np.array_equal(fused, staged)}")
+
+    # P3 from the kernel's D1 against P3 from the plain version's D1, and
+    # each against P3 from an fp64 D1.
+    def p3_from(d1):
+        d2, _, _ = compute_d2(d1, s0, cfg.filter_size, 1)
+        _, p3, _, _ = compute_d3(d2, s0, p=cfg.q_p, alpha=cfg.q_alpha,
+                                 eps=cfg.q_eps, thresholding=cfg.threshold)
+        return p3.double()
+
+    rows = feats.double()
+    sq = (rows * rows).sum(1)
+    d1_true = (sq[:, None] + sq[None, :] - 2.0 * (rows @ rows.t())
+               ).clamp_min(0)
+    d1_true.fill_diagonal_(0.0)
+    del rows
+    p3_true = p3_from(d1_true.sqrt().float())
+    del d1_true
+    p3_kernel = p3_from(compute_d1(feats, s0)[0])
+    with fp32_exact():
+        p3_plain = p3_from(pairwise_l2_reference(feats))
+
+    def p3_diff(a, b):
+        return float(((a - b).abs() / b.amax(1, keepdim=True)).max())
+
+    p3_rel = p3_diff(p3_kernel, p3_plain)
+    log(f"    P3 from D1, max |dP3| / row max: kernel vs plain {p3_rel:.3g} "
+        f"(tolerance {P3_RTOL:g}); kernel vs fp64 "
+        f"{p3_diff(p3_kernel, p3_true):.3g}; plain vs fp64 "
+        f"{p3_diff(p3_plain, p3_true):.3g}")
+    if p3_rel > P3_RTOL:
+        problems.append(f"P3 from the kernel's D1 differs from P3 from the "
+                        f"plain version's by {p3_rel:.3g} of the row max")
+    log("    " + nvidia_smi_line())
+    if problems:
+        raise AssertionError("classic path: " + "; ".join(problems))
+
+    r = main
+    return {"name": "pairwise_l2", "route": "cuda",
+            "source": "avtex_torch/csrc/pairwise_l2.cu",
+            "replaces": "avtex/ops/pairwise.py:74", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "max_sq_ratio": max(c["sq_ratio"] for c in checks),
+            "per": f"one launch at N={n}, F={f}"}
 
 
 def profile_embed(embed, wall_s: float) -> None:

@@ -4,10 +4,13 @@ On a machine with a card, without JAX installed::
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain version on the same bf16 inputs:
-that version accumulates in fp32 and rounds once, like the kernel, so the
-two differ by the accumulation order and one bf16 rounding of the output
+Each kernel is held against its plain version on the same inputs.
+fused_conv1x1: both accumulate in fp32 and round to bf16 once, so they
+differ by the accumulation order and one bf16 rounding of the output
 (tolerance 2e-2 relative + 2e-2 absolute, as tests/test_fused_matmul.py).
+pairwise_l2: both are fp32 Gram forms, so their squared distances differ
+by rounding at the scale of the operands (tolerance 1e-5 (|x_i|^2 +
+|x_j|^2)).
 """
 
 import pytest
@@ -76,3 +79,53 @@ def test_kernel_refuses_shapes_it_does_not_take(cuda, K, N, offset):
     with pytest.raises(ValueError):
         fused_matmul.fused_conv1x1(x, w, scale, bias)
     assert fused_matmul.launches == before
+
+
+# --------------------------------------------------------------------- #
+# pairwise_l2 (avtex_torch/csrc/pairwise_l2.cu)
+# --------------------------------------------------------------------- #
+
+def _rgb_rows(n, f, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 256, (n, f), generator=g).float().to(device)
+
+
+@pytest.mark.parametrize("n,f,normalize", [
+    (129, 1001, False),     # ragged rows and features (scalar loads)
+    (777, 12292, False),    # 16-byte loads, ragged last k slab
+    (300, 4099, True),
+    (1, 3, False),
+])
+def test_pairwise_kernel_matches_plain_version(cuda, n, f, normalize):
+    """Squared distances within 1e-5 (|x_i|^2 + |x_j|^2) of the plain
+    version (the Gram form's cancellation scale), exact zero diagonal."""
+    from avtex_torch.ops import pairwise
+    x = _rgb_rows(n, f, cuda)
+    before = pairwise.launches
+    got = pairwise.pairwise_l2(x, normalize=normalize)
+    torch.cuda.synchronize()
+    assert pairwise.launches == before + 1
+    want = pairwise.pairwise_l2_reference(x, normalize=normalize)
+    rows = pairwise._rows(x, normalize).double()
+    sq = (rows * rows).sum(1)
+    err = (got.double() ** 2 - want.double() ** 2).abs()
+    assert bool((err <= 1e-5 * (sq[:, None] + sq[None, :])).all())
+    assert bool((got.diagonal() == 0).all())
+    assert bool((got == got.t()).all())
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "cpu_sq"])
+def test_pairwise_kernel_refuses_what_it_does_not_take(cuda, bad):
+    from avtex_torch.ops import pairwise
+    x = _rgb_rows(64, 40, cuda)
+    before = pairwise.launches
+    if bad == "float64":
+        with pytest.raises(TypeError):
+            pairwise.pairwise_l2(x.double())
+    elif bad == "non_contiguous":
+        with pytest.raises(ValueError):
+            pairwise.pairwise_l2(x[:, ::2])
+    else:  # rows on the card, their norms on the host
+        with pytest.raises(ValueError):
+            pairwise.pairwise_l2_gram(x, (x * x).sum(1).cpu())
+    assert pairwise.launches == before
