@@ -34,7 +34,15 @@ non-zero, and no result line is printed):
    kernel launch count must equal the D1 calls; every P3_new finite,
    non-negative, with a survivor in every row; every walk transition on a
    nonzero entry of its row; the repeated run gives identical indices;
-   P3 from the kernel's D1 against P3 from the plain version's D1.
+   P3 from the kernel's D1 against P3 from the plain version's D1;
+8. fused_stage: slow res2 (SFBottleneck_0/2/4) and res3 (_6/8/10/12) of
+   the full-width encoder on their real inputs, captured by hooks from one
+   forward of the main path's 150 clips (BT = 1200 slices), with weights
+   from stage_weights_from_params(enc.state_dict()); 7 launches (one per
+   block); every block against the plain version elementwise and each
+   stage by relative Frobenius error; cosine per slice against the
+   model's own blocks (fuse="all" and fuse=False); small and ragged
+   shapes; kernel, wrapper, plain and model-chain times beside the bound.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -73,6 +81,23 @@ SQ_TOL = 1e-5
 # dD3 / sigma3 ~ 1e-3 (phase 7 prints each version against an fp64 D1).
 P3_RTOL = 1e-2
 CLASSIC_SECONDS = 60  # phases 6-7 keep N = 1800 whatever --seconds says
+# fused_stage: slow res2 (SFBottleneck_0/2/4, stride 1) and res3
+# (_6/8/10/12, stride 2) of SlowFast-R50, one kernel launch per block.
+STAGES = {"res2": ((0, 2, 4), 1), "res3": ((6, 8, 10, 12), 2)}
+STAGE_LAUNCHES = 7
+# Kernel vs plain version: both round to bf16 after conv1's and conv2's
+# ReLU and at each block's output, summing in other orders, so a y1 or y2
+# entry may land one bf16 ulp apart and move the block's output by about
+# one ulp (2^-8 relative): elementwise 2e-2 |ref| + 2e-2 on every single
+# block (avtex's tests/test_stage_fused.py:44). Through a stage's blocks
+# such differences compound, so a whole stage is held to a relative
+# Frobenius error <= 1e-2.
+STAGE_RTOL = STAGE_ATOL = 2e-2
+STAGE_FRO = 1e-2
+# Kernel vs the model's own blocks, which round the projection to bf16
+# before the residual add (fused_stage adds it in fp32) and, with
+# fuse=False, run cuDNN convs: cosine per slice, as phase 4.
+STAGE_COS = 0.999
 
 
 def log(msg: str) -> None:
@@ -135,6 +160,38 @@ def pairwise_bound_times(n: int, f: int):
     operations each over the fp32 peak."""
     return (4 * (n * f + n * n) / PEAK_BYTES_S * 1e3,
             n * (n + 1) * f / PEAK_FP32_FLOP_S * 1e3)
+
+
+def block_flops(bt, h, w, cin, f, cout, stride, proj) -> int:
+    """Operations of one bottleneck: conv1 at the input resolution, conv2,
+    conv3 and the projection at the output's, 2 per product term."""
+    ho, wo = h // stride, w // stride
+    return 2 * bt * (h * w * cin * f + ho * wo * (
+        9 * f * f + f * cout + (cin * cout if proj else 0)))
+
+
+def stage_bound_times(bt: int, h: int, w: int, cin: int, f: int, cout: int,
+                      n_blocks: int, stride: int):
+    """(bytes ms, operations ms, handoff bytes ms) of one slow stage: the
+    stage input read once, its output written once and every weight read
+    once over the HBM rate; conv1 at the input resolution and conv2, conv3
+    and the block-0 projection at the output's, 2 operations a product
+    term, over the bf16 tensor-core peak. The third time is what one
+    launch per block adds: each inner block output written and read."""
+    ho, wo = h // stride, w // stride
+    flops, wbytes, c = 0, 0, cin
+    for i in range(n_blocks):
+        proj = i == 0
+        flops += block_flops(bt, h, w, c, f, cout, stride, proj) if proj \
+            else block_flops(bt, ho, wo, c, f, cout, 1, proj)
+        wbytes += 2 * (c * f + 9 * f * f + f * cout
+                       + (c * cout if proj else 0))
+        wbytes += 4 * 2 * (2 * f + cout + (cout if proj else 0))
+        c = cout
+    nbytes = 2 * bt * (h * w * cin + ho * wo * cout) + wbytes
+    handoff = 2 * 2 * bt * ho * wo * cout * (n_blocks - 1)
+    return (nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3,
+            handoff / PEAK_BYTES_S * 1e3)
 
 
 def synthetic_video(seconds: int, fps: int = 30, res: int = 224):
@@ -465,6 +522,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.append(classic_phases())
+    kernels.append(stage_phase(cfg, video, state, res))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -651,6 +709,255 @@ def classic_phases() -> dict:
             "library_ms": r["library_ms"],
             "max_sq_ratio": max(c["sq_ratio"] for c in checks),
             "per": f"one launch at N={n}, F={f}"}
+
+
+def check_stage(x, blocks, stride: int, label: str) -> dict:
+    """fused_stage's kernel against its plain version on the card: every
+    block alone on the plain chain's input (elementwise gate), then the
+    whole stage (relative Frobenius gate). The kernel launches here are
+    comparisons; the caller reads the main path's count before them."""
+    import torch
+    from avtex_torch.ops import stage_fused as sf
+    h, worst_block, max_abs = x, 0.0, 0.0
+    ok = True
+    for i, blk in enumerate(blocks):
+        s = stride if i == 0 else 1
+        got = sf.launch_block(h.contiguous(), sf.pack_block(blk, x.device),
+                              s)
+        torch.cuda.synchronize()
+        with fp32_exact():
+            want = sf._block_reference(h, blk, s)
+        diff = (got.float() - want.float()).abs()
+        tol = STAGE_RTOL * want.float().abs() + STAGE_ATOL
+        ok = ok and bool((diff <= tol).all()) and got.shape == want.shape
+        worst_block = max(worst_block, float((diff / tol).max()))
+        max_abs = max(max_abs, float(diff.max()))
+        del got, diff, tol
+        h = want
+    got = sf.fused_stage(x, blocks, stride)
+    torch.cuda.synchronize()
+    fro = float(torch.linalg.vector_norm(got.float() - h.float())
+                / torch.linalg.vector_norm(h.float()))
+    max_abs = max(max_abs, float((got.float() - h.float()).abs().max()))
+    ok = ok and fro <= STAGE_FRO and bool(torch.isfinite(got).all())
+    log(f"    {label}: x {tuple(x.shape)} -> {tuple(got.shape)}, "
+        f"{len(blocks)} block(s): worst block err / tol {worst_block:.3g}, "
+        f"stage rel Frobenius {fro:.3g}, max |kernel - plain| "
+        f"{max_abs:.4g}; plain output mean |y| "
+        f"{float(h.float().abs().mean()):.4g}, share > 0 "
+        f"{float((h > 0).float().mean()):.3f}")
+    return {"label": label, "ok": ok, "fro": fro, "max_abs_err": max_abs,
+            "worst_block_ratio": worst_block}
+
+
+def random_stage(cin, f, cout, n_blocks, seed):
+    """Seeded blocks on the card whose activations stay O(1)."""
+    import torch
+    from avtex_torch.ops.stage_fused import BlockWeights
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*shape):
+        fan_in = shape[-2] * (9 if len(shape) == 4 else 1)
+        return torch.randn(*shape, generator=g, device="cuda") * fan_in ** -.5
+
+    def aff(n):
+        return (torch.rand(n, generator=g, device="cuda") + 0.5,
+                torch.randn(n, generator=g, device="cuda") * 0.1)
+
+    blocks, c = [], cin
+    for i in range(n_blocks):
+        (s1, b1), (s2, b2), (s3, b3) = aff(f), aff(f), aff(cout)
+        sp, bp = aff(cout) if i == 0 else (None, None)
+        blocks.append(BlockWeights(
+            mk(c, f), s1, b1, mk(3, 3, f, f), s2, b2, mk(f, cout), s3, b3,
+            mk(c, cout) if i == 0 else None, sp, bp))
+        c = cout
+    return blocks
+
+
+def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
+    """Phase 8; returns fused_stage's entry of the kernels line."""
+    import torch
+    from avtex_torch.data.preprocess import preprocess_clip
+    from avtex_torch.nn.slowfast import SlowFastR50, slowfast_pathways
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.ops import stage_fused as sf
+
+    t_phase = time.perf_counter()
+    encs = {}
+    for fuse in ("all", False):
+        m = SlowFastR50(norm="affine", fuse=fuse)
+        m.load_state_dict(state)
+        encs[fuse] = m.cuda().eval()
+    n_clips = cfg.mini_batchsize
+    W, S = cfg.window, cfg.stride
+    video_dev = torch.from_numpy(video).cuda()
+    idx = (torch.arange(n_clips, device="cuda")[:, None] * S
+           + torch.arange(W, device="cuda")[None])
+    caps = {}
+
+    def grab(name):
+        def hook(mod, args):
+            caps[name] = args[0]
+        return hook
+
+    hooks = [getattr(encs["all"], f"SFBottleneck_{ids[0]}")
+             .register_forward_pre_hook(grab(name))
+             for name, (ids, _) in STAGES.items()]
+    with torch.inference_mode():
+        clips = slowfast_pathways(preprocess_clip(video_dev[idx], res, True))
+        encs["all"](*clips)
+    for hk in hooks:
+        hk.remove()
+    del clips, video_dev
+    torch.cuda.empty_cache()
+
+    sd = encs["all"].state_dict()
+    xs, blocks = {}, {}
+    for name, (ids, _) in STAGES.items():
+        c = caps[name]
+        rows = c.permute(0, 2, 3, 4, 1)  # channels_last_3d: a free view
+        if not rows.is_contiguous():
+            raise AssertionError(f"{name} input is not channels-last")
+        xs[name] = rows.reshape(-1, c.shape[3], c.shape[4], c.shape[1])
+        blocks[name] = sf.stage_weights_from_params(sd, ids)
+    log(f"[8] fused_stage on slow res2 and res3 of the full-width encoder, "
+        f"inputs captured from one forward of {n_clips} clips: "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in xs.items())
+        + f"; gates: block err <= {STAGE_RTOL:g}|ref| + {STAGE_ATOL:g}, "
+          f"stage rel Frobenius <= {STAGE_FRO:g}, cosine vs the model's "
+          f"blocks >= {STAGE_COS:g} per slice")
+
+    # the path: both stages through the wrapper, counts read around it
+    with torch.inference_mode():
+        reset_launch_counts()
+        outs = {name: sf.fused_stage(xs[name], blocks[name], stride)
+                for name, (_, stride) in STAGES.items()}
+        torch.cuda.synchronize()
+        launches = launch_counts()["fused_stage"]
+    log(f"    fused_stage launches on the path: {launches} (expected "
+        f"{STAGE_LAUNCHES}: one per block)")
+    problems = []
+    if launches != STAGE_LAUNCHES:
+        problems.append(f"{launches} launches, expected {STAGE_LAUNCHES}")
+
+    checks, rows_out = [], {}
+    with torch.inference_mode():
+        for name, (ids, stride) in STAGES.items():
+            x, out = xs[name], outs[name]
+            checks.append(check_stage(x, blocks[name], stride,
+                                      f"{name} at BT={x.shape[0]}"))
+            c = caps[name]
+
+            def chain(enc, c=c, ids=ids):  # the model's own blocks
+                y = c
+                for i in ids:
+                    y = getattr(enc, f"SFBottleneck_{i}")(y)
+                return y
+
+            cos = {}
+            for fuse, enc in encs.items():
+                y = chain(enc).permute(0, 2, 3, 4, 1).reshape(out.shape)
+                cos[fuse] = float(torch.nn.functional.cosine_similarity(
+                    out.float().reshape(out.shape[0], -1),
+                    y.float().reshape(out.shape[0], -1), dim=1).min())
+                del y
+            log(f"    {name} vs the model's blocks: cosine min "
+                f"{cos['all']:.6f} (fuse='all'), {cos[False]:.6f} "
+                f"(fuse=False, cuDNN)")
+            if min(cos.values()) < STAGE_COS:
+                problems.append(f"{name}: cosine {cos} vs the model")
+
+            packed = [sf.pack_block(b, x.device) for b in blocks[name]]
+
+            def kernel_only(x=x, packed=packed, stride=stride):
+                y = x
+                for i, p in enumerate(packed):
+                    y = sf.launch_block(y, p, stride if i == 0 else 1)
+                return y
+
+            bt, h, w, cin = x.shape
+            f, cout = blocks[name][0].w1.shape[1], out.shape[-1]
+            t_bytes, t_ops, t_hand = stage_bound_times(
+                bt, h, w, cin, f, cout, len(ids), stride)
+            ins = [x]
+            for i, p in enumerate(packed[:-1]):
+                ins.append(sf.launch_block(ins[-1], p, stride if i == 0
+                                           else 1))
+            block_ms = [time_ms(lambda i=i: sf.launch_block(
+                ins[i], packed[i], stride if i == 0 else 1), reps=5)
+                for i in range(len(packed))]
+            block_tflops = [
+                block_flops(bt, *ins[i].shape[1:], f, cout,
+                            stride if i == 0 else 1, i == 0) / ms / 1e9
+                for i, ms in enumerate(block_ms)]
+            del ins
+            r = {"ms": time_ms(kernel_only, reps=5),
+                 "wrapper_ms": time_ms(
+                     lambda: sf.fused_stage(x, blocks[name], stride),
+                     reps=5),
+                 "chain_fuse_all_ms": time_ms(lambda: chain(encs["all"]),
+                                              reps=5),
+                 "chain_cudnn_ms": time_ms(lambda: chain(encs[False]),
+                                           reps=5),
+                 "bytes_ms": t_bytes, "ops_ms": t_ops,
+                 "handoff_ms": t_hand, "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "launches": len(ids), "block_ms": block_ms,
+                 "block_tflop_s": block_tflops}
+            with fp32_exact():
+                r["plain_ms"] = time_ms(lambda: sf.stage_reference(
+                    x, blocks[name], stride), reps=2, warmup=1)
+            rows_out[name] = r
+            log(f"    {name} times: kernel {r['ms']:.3f} ms ({len(ids)} "
+                f"launches), wrapper {r['wrapper_ms']:.3f}, plain "
+                f"{r['plain_ms']:.3f}, model chain fuse='all' "
+                f"{r['chain_fuse_all_ms']:.3f}, fuse=False "
+                f"{r['chain_cudnn_ms']:.3f}; bound {r['bound_ms']:.3f} "
+                f"({r['bound_by']}; bytes {t_bytes:.3f}, operations "
+                f"{t_ops:.3f}, block handoffs +{t_hand:.3f}); per block "
+                + ", ".join(f"{ms:.3f} ms ({tf:.0f} TFLOP/s)"
+                            for ms, tf in zip(block_ms, block_tflops)))
+        del outs, caps, xs
+        torch.cuda.empty_cache()
+
+        # small and ragged shapes: avtex's test shapes at stride 1 and 2,
+        # odd H and W, an odd BT, the path's channel counts at small BT
+        for j, (bt, h, w, cin, f, cout, nb, stride) in enumerate([
+                (6, 16, 16, 24, 16, 64, 2, 1), (6, 16, 16, 24, 16, 64, 2, 2),
+                (3, 15, 13, 24, 16, 64, 2, 1), (7, 56, 56, 80, 64, 256, 3, 1),
+                (5, 56, 56, 320, 128, 512, 4, 2)]):
+            g = torch.Generator(device="cuda").manual_seed(800 + j)
+            x = torch.randn(bt, h, w, cin, generator=g, device="cuda").to(
+                torch.bfloat16)
+            checks.append(check_stage(
+                x, random_stage(cin, f, cout, nb, 810 + j), stride,
+                f"random BT={bt} {h}x{w} {cin}->{f}->{cout} stride {stride}"))
+    problems += [f"{c['label']} disagrees with the plain version"
+                 for c in checks if not c["ok"]]
+    log(f"    phase 8: {time.perf_counter() - t_phase:.1f} s; "
+        + nvidia_smi_line())
+    if problems:
+        raise AssertionError("fused_stage: " + "; ".join(problems))
+
+    def total(key):
+        return sum(r[key] for r in rows_out.values())
+
+    return {"name": "fused_stage", "route": "cuda",
+            "source": "avtex_torch/csrc/fused_stage.cu",
+            "replaces": "avtex/ops/stage_fused.py:293", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                         else "operations"),
+            "library_ms": None, "wrapper_ms": total("wrapper_ms"),
+            "chain_fuse_all_ms": total("chain_fuse_all_ms"),
+            "chain_cudnn_ms": total("chain_cudnn_ms"),
+            "max_stage_fro": max(c["fro"] for c in checks),
+            "per": f"slow res2 + res3 at BT={n_clips * 8} "
+                   f"({STAGE_LAUNCHES} launches)",
+            "stages": rows_out}
 
 
 def profile_embed(embed, wall_s: float) -> None:

@@ -11,6 +11,9 @@ differ by the accumulation order and one bf16 rounding of the output
 pairwise_l2: both are fp32 Gram forms, so their squared distances differ
 by rounding at the scale of the operands (tolerance 1e-5 (|x_i|^2 +
 |x_j|^2)).
+fused_stage: both round to bf16 after each conv's ReLU and at each
+block's output, summing in other orders: one block within 2e-2 relative +
+2e-2 absolute; a whole stage within 1e-2 relative Frobenius error.
 """
 
 import pytest
@@ -129,3 +132,112 @@ def test_pairwise_kernel_refuses_what_it_does_not_take(cuda, bad):
         with pytest.raises(ValueError):
             pairwise.pairwise_l2_gram(x, (x * x).sum(1).cpu())
     assert pairwise.launches == before
+
+
+# --------------------------------------------------------------------- #
+# fused_stage (avtex_torch/csrc/fused_stage.cu)
+# --------------------------------------------------------------------- #
+
+def _stage(cin, f, cout, n_blocks, device, proj=True, seed=0):
+    """Random blocks whose activations stay O(1): weights ~ N(0, 1/K)."""
+    from avtex_torch.ops.stage_fused import BlockWeights
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def mk(*shape):
+        return (torch.randn(*shape, generator=g)
+                * (shape[-2] if len(shape) == 2 else 9 * shape[-2]) ** -0.5
+                ).to(device)
+
+    def aff(n):
+        return ((torch.rand(n, generator=g) + 0.5).to(device),
+                (torch.randn(n, generator=g) * 0.1).to(device))
+
+    blocks, c = [], cin
+    for i in range(n_blocks):
+        p = proj and i == 0
+        s1, b1 = aff(f)
+        s2, b2 = aff(f)
+        s3, b3 = aff(cout)
+        sp, bp = aff(cout) if p else (None, None)
+        blocks.append(BlockWeights(
+            w1=mk(c, f), s1=s1, b1=b1, w2=mk(3, 3, f, f), s2=s2, b2=b2,
+            w3=mk(f, cout), s3=s3, b3=b3, wp=mk(c, cout) if p else None,
+            sp=sp, bp=bp))
+        c = cout
+    return blocks
+
+
+@pytest.mark.parametrize("bt,h,w,cin,f,cout,stride,proj", [
+    (6, 16, 16, 24, 16, 64, 1, True),       # avtex's test shapes
+    (6, 16, 16, 24, 16, 64, 2, True),
+    (7, 15, 13, 64, 32, 128, 1, True),      # odd H, W; ragged tiles
+    (5, 28, 28, 512, 128, 512, 1, False),   # res3's later blocks
+    (3, 56, 56, 80, 64, 256, 1, True),      # res2 block 0
+    (2, 56, 56, 320, 128, 512, 2, True),    # res3 block 0
+])
+def test_stage_block_matches_plain_version(cuda, bt, h, w, cin, f, cout,
+                                           stride, proj):
+    """One block: elementwise within 2e-2 |ref| + 2e-2 (a one-ulp bf16
+    difference in y1 or y2 moves the output by about one ulp)."""
+    from avtex_torch.ops import stage_fused
+    blocks = _stage(cin, f, cout, 1, cuda, proj)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(bt, h, w, cin, generator=g).to(cuda, torch.bfloat16)
+    before = stage_fused.launches
+    if proj:
+        got = stage_fused.fused_stage(x, blocks, stride)
+        want = stage_fused.stage_reference(x, blocks, stride)
+    else:  # a stage's later block: only the launch takes it alone
+        got = stage_fused.launch_block(
+            x, stage_fused.pack_block(blocks[0], cuda), stride)
+        want = stage_fused._block_reference(x, blocks[0], stride)
+    torch.cuda.synchronize()
+    assert stage_fused.launches == before + 1
+    assert got.shape == want.shape == (bt, h // stride, w // stride, cout)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("cin,f,cout,n_blocks,stride", [
+    (80, 64, 256, 3, 1),      # slow res2
+    (320, 128, 512, 4, 2),    # slow res3
+])
+def test_path_stage_matches_plain_version(cuda, cin, f, cout, n_blocks,
+                                          stride):
+    """A whole stage at a small BT: relative Frobenius error <= 1e-2."""
+    from avtex_torch.ops import stage_fused
+    blocks = _stage(cin, f, cout, n_blocks, cuda)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn(3, 56, 56, cin, generator=g).to(cuda, torch.bfloat16)
+    before = stage_fused.launches
+    got = stage_fused.fused_stage(x, blocks, stride).float()
+    torch.cuda.synchronize()
+    assert stage_fused.launches == before + n_blocks
+    want = stage_fused.stage_reference(x, blocks, stride).float()
+    assert bool(torch.isfinite(got).all())
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.parametrize("cin,f,cout", [(12, 16, 64),    # C_in % 8
+                                        (24, 8, 64),     # F % 16
+                                        (24, 256, 64),   # F > 128
+                                        (24, 16, 72)])   # C_out % 16
+def test_stage_kernel_refuses_shapes_it_does_not_take(cuda, cin, f, cout):
+    from avtex_torch.ops import stage_fused
+    blocks = _stage(cin, f, cout, 1, cuda)
+    x = torch.zeros(2, 8, 8, cin, device=cuda, dtype=torch.bfloat16)
+    before = stage_fused.launches
+    with pytest.raises(ValueError):
+        stage_fused.fused_stage(x, blocks, 1)
+    assert stage_fused.launches == before
+
+
+def test_stage_launch_refuses_float32(cuda):
+    from avtex_torch.ops import stage_fused
+    blocks = _stage(24, 16, 64, 1, cuda)
+    x = torch.zeros(2, 8, 8, 24, device=cuda)
+    with pytest.raises(TypeError):
+        stage_fused.launch_block(x, stage_fused.pack_block(blocks[0], cuda),
+                                 1)
