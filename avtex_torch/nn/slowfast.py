@@ -43,12 +43,14 @@ SLOW_FRAMES = FAST_FRAMES // ALPHA
 
 # The shape rule for the 1x1 kernel, kept in this one place: a 1x1 conv
 # goes to fused_conv1x1 when both its input and output channel counts are
-# at least this many, its input channels a multiple of 8 (the kernel loads
-# 16-byte chunks of K) and its output channels even (it stores bf16
-# pairs); other convs stay on cuDNN. 128 is avtex's rule (on the TPU it
-# avoided lane padding); whether Hopper wants another value is an open
-# measurement (PERF.md).
-KERNEL_MIN_CHANNELS = 128
+# at least this many and both are multiples of 8 (the kernel's TMA rows of
+# K and N are whole 16-byte units); other convs stay on cuDNN. avtex's
+# TPU rule is 128 (it avoided lane padding); on an H100 the kernel beats
+# the cuDNN conv + Affine + residual + ReLU chain at every 64-channel 1x1
+# conv of SlowFast-R50 and the warm embed is faster with 64 (PERF.md,
+# chip_smoke.py phases 3 and 5). The fast pathway's 32-channel 1x1 convs
+# below that are not measured.
+KERNEL_MIN_CHANNELS = 64
 
 CL3D = torch.channels_last_3d
 
@@ -106,7 +108,7 @@ class SFBottleneck(nn.Module):
         conv = getattr(self, f"Conv_{idx}")
         k, n = conv.in_channels, conv.out_channels
         return (min(k, n) >= KERNEL_MIN_CHANNELS and k % 8 == 0
-                and n % 2 == 0)
+                and n % 8 == 0)
 
     def _fused(self, idx: int, z: torch.Tensor, residual=None,
                relu: bool = True) -> torch.Tensor:

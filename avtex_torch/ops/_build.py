@@ -7,8 +7,10 @@ launcher and is compiled on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited source rebuilds.
-No PyTorch headers are included, which keeps a build to seconds.
+The hash covers the source, every header it includes from ``csrc/``
+(``#include "<file>"``, followed through headers) and the flags, so an
+edited source or header rebuilds. No PyTorch headers are included, which
+keeps a build to seconds.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits.
 """
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,9 +44,28 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, in the order first reached."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in files:
+            continue
+        files.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return files
+
+
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in source_files(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -8,21 +8,22 @@ optional ``residual [M, N]``.
 
 Kernel: ``avtex_torch/csrc/fused_conv1x1.cu``. It replaces the TPU kernel
 ``avtex/ops/fused_matmul.py::fused_conv1x1`` (``_kernel_res`` /
-``_kernel_nores``, ``pallas_call`` at line 192). On an H100 the SlowFast
-bottleneck shapes are bound by device-memory bytes for small K and N and
-sit near the bf16 ridge for the large ones; the kernel therefore reads x
-and w once through shared memory, runs bf16 ``mma.sync`` tensor-core
-instructions with an fp32 accumulator, and applies the whole epilogue in
-registers before its single bf16 store -- no extra elementwise pass over
-the block's largest activation.
+``_kernel_nores``, ``pallas_call`` at line 192). On an H100 most SlowFast
+bottleneck shapes are bound by device-memory bytes and the largest
+projections by operations; the kernel is a persistent grid of one block
+per SM over 128-row tiles in which all N-chunks of one M tile run
+together (x comes from device memory once), TMA loads of x and w into a
+ring of swizzled k slabs, bf16 ``wgmma`` with fp32 accumulators, and the
+whole epilogue in registers before one bf16 rounding and a TMA store of
+the tile, which overlaps the next tile's product.
 
 Dispatch: a CUDA tensor launches the kernel or raises (there is no
 fallback inside the wrapper, by shape or otherwise); the kernel takes
-bf16, K % 8 == 0, even N, x and weight 16-byte aligned and residual
-4-byte aligned. A CPU tensor runs ``fused_conv1x1_reference``, the same
-expression in plain torch with an fp32 accumulate. Which convs go to the
-kernel is decided by the caller (``avtex_torch/nn/slowfast.py::
-SFBottleneck.kernel_eligible``), not here.
+bf16, K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row strides), and x,
+weight, residual, scale and bias 16-byte aligned. A CPU tensor runs
+``fused_conv1x1_reference``, the same expression in plain torch with an
+fp32 accumulate. Which convs go to the kernel is decided by the caller
+(``avtex_torch/nn/slowfast.py::SFBottleneck.kernel_eligible``), not here.
 
 ``launches`` counts the kernel launches made by this wrapper.
 """
@@ -115,13 +116,13 @@ def fused_conv1x1(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
                         f"got {x.dtype}")
     M, K = x.shape
     N = weight.shape[0]
-    if K % 8 or N % 2:
-        raise ValueError(f"the CUDA kernel takes K % 8 == 0 and even N; got "
-                         f"K={K}, N={N}")
-    if (x.data_ptr() % 16 or weight.data_ptr() % 16
-            or (residual is not None and residual.data_ptr() % 4)):
-        raise ValueError("the CUDA kernel takes x and weight 16-byte "
-                         "aligned and residual 4-byte aligned")
+    if K % 8 or N % 8 or M >= 2 ** 31:
+        raise ValueError(f"the CUDA kernel takes K % 8 == 0, N % 8 == 0 and "
+                         f"M < 2^31; got M={M}, K={K}, N={N}")
+    if any(t.data_ptr() % 16 for t in (x, weight, scale, bias, residual)
+           if t is not None):
+        raise ValueError("the CUDA kernel takes x, weight, residual, scale "
+                         "and bias 16-byte aligned")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

@@ -13,16 +13,22 @@ non-zero, and no result line is printed):
    parallel;
 3. fused_conv1x1 against its plain version on the card, at every shape
    the main path gives it (captured from a forward pass of the
-   full-width encoder, scaled to the main path's batch) plus ragged
-   edges; kernel, plain-version and torch.matmul (product only) times;
+   full-width encoder, scaled to the main path's batch) and at ragged
+   edges; per shape the kernel's time and share of its bound, the plain
+   version's, torch.matmul's (product only) and the unfused chain's
+   (cuDNN 1x1 conv3d + Affine + residual + ReLU, what a conv outside the
+   channel rule runs); kernel against chain at the shapes with
+   min(K, N) < 128 is the channel rule's evidence;
 4. the full-width SlowFast-R50 (norm="affine", bf16) with the kernel
    (fuse="all") against cuDNN 1x1 convs (fuse=False) on 8 clips at 224^2:
    cosine similarity >= 0.999;
 5. the main path: TextureServer.from_frames on a synthetic 60 s, 30 fps,
    224^2 video (bench.py's moving gradients; L = 297 segments), both
    towers at batch 150 with seeded flax-style weights; the launch counter
-   must read 42 per batch; then three requests, the third repeating the
-   first (identical indices), stitched with the crossfade;
+   must read 64 per batch; the warm embed timed again with the channel
+   rule at its other value (128 or 64), the rule's other evidence; then
+   three requests, the third repeating the first (identical indices),
+   stitched with the crossfade;
 6. pairwise_l2 against its plain version on the card: the RGB rows of a
    60 s, 30 fps, 224^2 synthetic video (N = 1800, F = 150528), the same
    rows normalized, and ragged shapes; squared distances within
@@ -62,7 +68,20 @@ import numpy as np
 # NVIDIA H100 SXM data sheet (dense): bf16 tensor cores, HBM3 bandwidth.
 PEAK_BF16_FLOP_S = 989e12
 PEAK_BYTES_S = 3.35e12
-LAUNCHES_PER_BATCH = 42  # 21 eligible 1x1 convs per tower, two towers
+# 32 eligible 1x1 convs per tower under the channel rule of 64, two
+# towers: 11 with 64 <= min(K, N) < 128 (slow res2's seven, the fast res4
+# projection, fast res5's three conv3) and the 21 of avtex's rule of 128.
+LAUNCHES_PER_BATCH = 64
+# Ragged edges of the tiling: M off the 128-row tile with over 4 x 132
+# tiles, N-chunk tails (N = 200, 384), K off the 64-wide slab (24, 104)
+# and long (1280), M below one 64-row half tile.
+RAGGED_SHAPES = [
+    (1000, 320, 128, False, True), (392 * 3, 1280, 2048, False, False),
+    (777, 128, 512, True, True), (300, 104, 200, True, True),
+    (129, 24, 200, False, True), (128 * 600 + 37, 128, 512, True, True),
+    (128 * 300 + 77, 104, 384, True, False), (5000, 1280, 384, True, True),
+    (37, 24, 384, True, True), (50, 320, 200, False, True),
+]
 # Kernel vs plain version: both round an fp32 sum to bf16 once, so they
 # may land one bf16 ulp apart (2^-7 relative), plus slack for the order
 # of the fp32 accumulation.
@@ -225,7 +244,45 @@ def capture_kernel_calls(enc, slow, fast):
     return calls
 
 
-def check_kernel_shape(M, K, N, residual, relu, timed, seed):
+def clip_dims(rows: int):
+    """(T, H, W) of one clip's activation with ``rows`` = T H W rows: the
+    slow pathway has T = 8, the fast one T = 32, and H = W."""
+    for t in (8, 32):
+        side = int(round((rows / t) ** 0.5))
+        if t * side * side == rows:
+            return t, side, side
+    raise ValueError(f"{rows} rows per clip is no T x H x H activation")
+
+
+def unfused_chain(x, w, scale, bias, r, relu, dims):
+    """What a 1x1 conv outside the kernel's rule runs
+    (``SFBottleneck._fused``'s cuDNN branch): conv3d on the channels-last
+    activation, Affine, the residual add, ReLU."""
+    import torch
+    from avtex_torch.nn.resnet3d import Affine
+    t, h, wd = dims
+    m, k = x.shape
+    n = w.shape[0]
+    aff = Affine(n).to(x.device)
+    aff.scale.data, aff.bias.data = scale, bias
+    z = x.view(m // (t * h * wd), t, h, wd, k).permute(0, 4, 1, 2, 3)
+    res = (None if r is None else
+           r.view(m // (t * h * wd), t, h, wd, n).permute(0, 4, 1, 2, 3))
+    wt = w.view(n, k, 1, 1, 1)
+
+    def run():
+        with torch.inference_mode():
+            y = aff(torch.nn.functional.conv3d(z, wt))
+            if res is not None:
+                y = y + res
+            return torch.relu(y) if relu else y
+    return run
+
+
+def check_kernel_shape(M, K, N, residual, relu, timed, seed, dims=None):
+    """The kernel against its plain version at one shape; with ``timed``,
+    the times of the kernel, the plain version, torch.matmul and (given the
+    clip ``dims``) the unfused chain, beside the bound."""
     import torch
     from avtex_torch.ops import fused_conv1x1, fused_conv1x1_reference
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -256,11 +313,25 @@ def check_kernel_shape(M, K, N, residual, relu, timed, seed):
             res["plain_ms"] = time_ms(lambda: fused_conv1x1_reference(
                 x, w, scale, bias, r, relu), reps=3, warmup=1)
         res["matmul_ms"] = time_ms(lambda: torch.matmul(x, w.t()), reps=10)
+        if dims is not None:
+            res["chain_ms"] = time_ms(unfused_chain(x, w, scale, bias, r,
+                                                    relu, dims), reps=10)
         t_bytes, t_ops = bound_times(M, K, N, residual)
         res.update(bytes_ms=t_bytes, ops_ms=t_ops,
                    bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   share=max(t_bytes, t_ops) / res["ms"])
     return res
+
+
+def shape_line(r) -> str:
+    return (f"M={r['M']:>8} K={r['K']:>5} N={r['N']:>5} "
+            f"res={int(r['residual'])} relu={int(r['relu'])}: err "
+            f"{r['max_abs_err']:.3g} (rel {r['max_rel_err']:.3g}) ms "
+            f"{r['ms']:.4f} = {100 * r['share']:.1f}% of bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}); plain "
+            f"{r['plain_ms']:.4f}, matmul {r['matmul_ms']:.4f}, unfused "
+            f"chain {r['chain_ms']:.4f}")
 
 
 def check_pairwise(x, normalize: bool, timed: bool):
@@ -342,6 +413,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
         return 1
+    import avtex_torch.nn.slowfast as sfmod
     from avtex_torch.config import Config
     from avtex_torch.data.preprocess import preprocess_clip
     from avtex_torch.nn.slowfast import SlowFastR50, slowfast_pathways
@@ -401,19 +473,29 @@ def main() -> int:
         f"tolerance {ULP_REL:g}*|out| + {ACC_ABS:g}")
     rows = []
     for i, ((m1, K, N, resid, relu), count) in enumerate(shapes.items()):
-        r = check_kernel_shape(m1 * batch, K, N, resid, relu, True, i)
+        r = check_kernel_shape(m1 * batch, K, N, resid, relu, True, i,
+                               clip_dims(m1))
         r["per_tower"] = count
         rows.append(r)
-        log(f"    M={r['M']:>8} K={K:>5} N={N:>5} res={int(resid)} "
-            f"relu={int(relu)} x{count}: err {r['max_abs_err']:.3g} "
-            f"(rel {r['max_rel_err']:.3g}) ms {r['ms']:.4f} "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"plain {r['plain_ms']:.4f} matmul {r['matmul_ms']:.4f}")
-    ragged = [(1000, 320, 128, False, True), (392 * 3, 1280, 2048, False,
-                                              False),
-              (777, 128, 512, True, True), (300, 104, 200, True, True),
-              (129, 24, 200, False, True)]
-    for j, (M, K, N, resid, relu) in enumerate(ragged):
+        log(f"    {shape_line(r)} x{count}")
+    main_rows = list(rows)
+    wide = [r for r in main_rows if min(r["K"], r["N"]) >= 128]
+    for label, sel in (("main path", main_rows),
+                       ("its calls with min(K, N) >= 128", wide)):
+        log(f"    {label}, one tower forward "
+            f"({sum(r['per_tower'] for r in sel)} calls): kernel "
+            f"{sum(r['ms'] * r['per_tower'] for r in sel):.4f} ms, bound "
+            f"{sum(r['bound_ms'] * r['per_tower'] for r in sel):.4f} ms, "
+            f"unfused chain "
+            f"{sum(r['chain_ms'] * r['per_tower'] for r in sel):.4f} ms")
+    narrow = [r for r in main_rows if min(r["K"], r["N"]) < 128]
+    log(f"    channel rule {sfmod.KERNEL_MIN_CHANNELS}: at its "
+        f"{len(narrow)} shapes with min(K, N) < 128 the kernel beats the "
+        f"unfused chain at {sum(r['ms'] < r['chain_ms'] for r in narrow)}; "
+        f"per tower forward kernel "
+        f"{sum(r['ms'] * r['per_tower'] for r in narrow):.4f} ms vs chain "
+        f"{sum(r['chain_ms'] * r['per_tower'] for r in narrow):.4f} ms")
+    for j, (M, K, N, resid, relu) in enumerate(RAGGED_SHAPES):
         r = check_kernel_shape(M, K, N, resid, relu, False, 100 + j)
         rows.append(r)
         log(f"    ragged M={M} K={K} N={N} res={int(resid)} "
@@ -479,6 +561,32 @@ def main() -> int:
         f"{2 * L / embed_s:.1f} clips/s")
     profile_embed(embed, embed_s)
 
+    # The channel rule's evidence: the same warm embed with the rule at its
+    # other value, then once more as it is, each the best of its runs.
+    rule = sfmod.KERNEL_MIN_CHANNELS
+    alt = 64 if rule == 128 else 128
+    alt_times = []
+    sfmod.KERNEL_MIN_CHANNELS = alt
+    try:
+        reset_launch_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            embed()
+            alt_times.append(time.perf_counter() - t0)
+        alt_launches = launch_counts()["fused_conv1x1"] // 2
+    finally:
+        sfmod.KERNEL_MIN_CHANNELS = rule
+    t0 = time.perf_counter()
+    embed()
+    embed_times.append(time.perf_counter() - t0)
+    log(f"    channel rule {rule} (as shipped, {launches // n_batches // 2} "
+        f"launches per tower forward): warm embed "
+        f"{min(embed_times):.3f} s (runs "
+        f"{', '.join(f'{t:.3f}' for t in embed_times)}); rule {alt} "
+        f"({alt_launches // n_batches // 2} launches per tower forward): "
+        f"{min(alt_times):.3f} s (runs "
+        f"{', '.join(f'{t:.3f}' for t in alt_times)})")
+
     requests = [dict(seconds=10, seed=1),
                 dict(seconds=30, threshold=0.2, seed=2),
                 dict(seconds=10, seed=1)]
@@ -499,8 +607,6 @@ def main() -> int:
                           outs[2]["result"].indices):
         raise AssertionError("a repeated request gave other indices")
 
-    main_rows = [r for r in rows if "per_tower" in r]
-
     def per_tower(key):
         return sum(r[key] * r["per_tower"] for r in main_rows)
 
@@ -515,6 +621,7 @@ def main() -> int:
         "bound_by": ("bytes" if per_tower("bytes_ms") >= per_tower("ops_ms")
                      else "operations"),
         "library_ms": None, "matmul_ms": per_tower("matmul_ms"),
+        "chain_ms": per_tower("chain_ms"),
         "per": f"one tower forward at batch {batch} "
                f"({LAUNCHES_PER_BATCH // 2} launches)",
     }]

@@ -48,6 +48,13 @@ def _operands(M, K, N, residual, device, seed=0):
     (777, 128, 512, True, True),
     (300, 104, 200, True, True),        # K not a multiple of the k slab
     (129, 24, 200, False, True),        # K < k slab, N not a multiple of 128
+    (128 * 600 + 37, 128, 512, True, True),   # ragged M, > 4 x 132 tiles
+    (128 * 300 + 77, 104, 384, True, False),  # N-chunk tail of 128
+    (5000, 1280, 384, True, True),
+    (37, 24, 384, True, True),          # M < 64: one half tile only
+    (50, 320, 200, False, True),
+    (4096, 80, 64, False, True),        # the 64-channel shapes' tile
+    (4096, 64, 256, True, True),
 ])
 def test_kernel_matches_plain_version(cuda, M, K, N, residual, relu):
     from avtex_torch.ops import fused_matmul
@@ -61,26 +68,56 @@ def test_kernel_matches_plain_version(cuda, M, K, N, residual, relu):
                                atol=2e-2)
 
 
-def test_kernel_refuses_float32_on_cuda(cuda):
+def test_persistent_schedule_many_tiles_per_sm(cuda):
+    """Over 10 output tiles per SM: every block walks many tiles, through
+    the ring and the epilogue buffer many times."""
+    from avtex_torch.ops import fused_matmul
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    M = 128 * 11 * sms + 5
+    x, w, scale, bias, r = _operands(M, 128, 256, True, cuda)
+    got = fused_matmul.fused_conv1x1(x, w, scale, bias, r, True)
+    want = fused_matmul.fused_conv1x1_reference(x, w, scale, bias, r, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_kernel_is_deterministic(cuda):
+    """No atomics: repeated calls give bit-identical output."""
     from avtex_torch.ops import fused_conv1x1
+    x, w, scale, bias, r = _operands(128 * 40 + 3, 320, 512, True, cuda)
+    first = fused_conv1x1(x, w, scale, bias, r, True)
+    for _ in range(3):
+        assert torch.equal(fused_conv1x1(x, w, scale, bias, r, True), first)
+
+
+def test_kernel_refuses_float32_on_cuda(cuda):
+    from avtex_torch.ops import fused_matmul
     x, w, scale, bias, _ = _operands(64, 32, 16, False, cuda)
+    before = fused_matmul.launches
     with pytest.raises(TypeError):
-        fused_conv1x1(x.float(), w.float(), scale, bias)
+        fused_matmul.fused_conv1x1(x.float(), w.float(), scale, bias)
+    assert fused_matmul.launches == before
 
 
-
-@pytest.mark.parametrize("K,N,offset", [
-    (100, 200, 0),      # K % 8 != 0
-    (24, 9, 0),         # odd N
-    (24, 200, 1),       # x starts 2 bytes past a 16-byte boundary
+@pytest.mark.parametrize("K,N,offset,res_offset", [
+    (100, 200, 0, None),    # K % 8 != 0
+    (24, 9, 0, None),       # odd N
+    (24, 12, 0, None),      # N % 8 != 0
+    (24, 200, 1, None),     # x starts 2 bytes past a 16-byte boundary
+    (24, 200, 0, 1),        # so does the residual
 ])
-def test_kernel_refuses_shapes_it_does_not_take(cuda, K, N, offset):
+def test_kernel_refuses_shapes_it_does_not_take(cuda, K, N, offset,
+                                                res_offset):
     from avtex_torch.ops import fused_matmul
     x, w, scale, bias, _ = _operands(65, K, N, False, cuda)
     x = x.view(-1)[offset:offset + 64 * K].view(64, K)
+    r = None
+    if res_offset is not None:
+        r = torch.zeros(65 * N, device=cuda, dtype=torch.bfloat16)
+        r = r[res_offset:res_offset + 64 * N].view(64, N)
     before = fused_matmul.launches
     with pytest.raises(ValueError):
-        fused_matmul.fused_conv1x1(x, w, scale, bias)
+        fused_matmul.fused_conv1x1(x, w, scale, bias, r)
     assert fused_matmul.launches == before
 
 

@@ -128,3 +128,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_conv1x1(x, wt, scale, bias, residual=torch.zeros(16, 5))
     with pytest.raises(TypeError):             # mixed dtypes
         fused_conv1x1(x.bfloat16(), wt, scale, bias)
+
+
+def _bottleneck_with_conv(K, N):
+    """An affine SFBottleneck whose conv 0 is a 1x1 conv of K -> N."""
+    from avtex_torch.nn.slowfast import SFBottleneck
+    blk = SFBottleneck(8, 8, norm="affine")
+    blk.Conv_0 = torch.nn.Conv3d(K, N, 1, bias=False)
+    return blk
+
+
+@pytest.mark.parametrize("K,N", MAIN_PATH_KN)
+def test_kernel_eligible_takes_every_main_path_shape(K, N):
+    assert _bottleneck_with_conv(K, N).kernel_eligible(0)
+
+
+@pytest.mark.parametrize("K,N", [(128, 132), (128, 250), (136, 1028),
+                                 (132, 256), (32, 512), (512, 56)])
+def test_kernel_eligible_refuses_what_the_kernel_does_not_take(K, N):
+    """N % 8, K % 8 (TMA's 16-byte rows) and the channel rule."""
+    assert not _bottleneck_with_conv(K, N).kernel_eligible(0)

@@ -69,11 +69,12 @@ def _port_encoder(tree, **kw):
 
 @pytest.mark.parametrize("s2d", [True, False])
 @pytest.mark.parametrize("fuse,kernel_min_channels", [
-    (False, 128), ("all", 0), ("all", 128)])
+    (False, 128), ("all", 0), ("all", 64), ("all", 128)])
 def test_affine_encoder_matches_avtex(monkeypatch, s2d, fuse,
                                       kernel_min_channels):
     # 0 sends every fused 1x1 conv of the narrow test model down the
-    # kernel's path (its plain version on the CPU).
+    # kernel's path (its plain version on the CPU); 64 is the port's rule,
+    # which at width 8 sends the res5 convs there.
     monkeypatch.setattr(port_slowfast, "KERNEL_MIN_CHANNELS",
                         kernel_min_channels)
     tree, want = _jax_run("affine", s2d, fuse)
@@ -104,20 +105,27 @@ def test_group_norm_encoder_matches_avtex():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
-def test_full_width_feature_dim_and_kernel_eligible_convs():
-    """SlowFast-R50 at width 64 sends 21 1x1 convs per tower forward to
-    the kernel under the K, N >= 128 rule (counted from the module tree;
-    no forward pass)."""
+def test_full_width_feature_dim_and_kernel_eligible_convs(monkeypatch):
+    """SlowFast-R50 at width 64 sends 32 1x1 convs per tower forward to
+    the kernel under the port's K, N >= 64 rule, 21 under avtex's >= 128
+    (counted from the module tree; no forward pass)."""
     enc = SlowFastR50(norm="affine", dtype=torch.float32)
     assert enc.feat_dim == 2304
-    n = 0
-    for name, blk in enc.named_children():
-        if not name.startswith("SFBottleneck_"):
-            continue
-        n += blk.t_kernel == 1 and blk.kernel_eligible(0)
-        n += blk.need_proj and blk.kernel_eligible(3)
-        n += blk.kernel_eligible(2)
-    assert n == 21
+    assert port_slowfast.KERNEL_MIN_CHANNELS == 64
+
+    def eligible():
+        n = 0
+        for name, blk in enc.named_children():
+            if not name.startswith("SFBottleneck_"):
+                continue
+            n += blk.t_kernel == 1 and blk.kernel_eligible(0)
+            n += blk.need_proj and blk.kernel_eligible(3)
+            n += blk.kernel_eligible(2)
+        return n
+
+    assert eligible() == 32
+    monkeypatch.setattr(port_slowfast, "KERNEL_MIN_CHANNELS", 128)
+    assert eligible() == 21
 
 
 @pytest.mark.parametrize("t", [15, 20, 32])
