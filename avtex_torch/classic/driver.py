@@ -13,7 +13,9 @@ The walk is ``sample_texture_walk_host`` with
 the device with ``jax.random.key(cfg.seed + i)``, which torch cannot
 reproduce: the same distribution, another stream. Jumps are interpolated
 with the crossfade unless ``interp_fn`` is given (avtex does the same
-without a SuperSloMo checkpoint).
+without a SuperSloMo checkpoint); in mode 1 without ``interp_fn``,
+a SuperSloMo checkpoint that is found raises ``NotImplementedError``,
+since avtex would interpolate with it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from avtex_torch.checkpoints import (checkpoint_not_ported,
+                                     find_slomo_checkpoint)
 from avtex_torch.config import ClassicConfig
 from avtex_torch.device import resolve_device
 from avtex_torch.obs import Logger
@@ -85,6 +89,11 @@ def run_classic_frames(cfg: ClassicConfig, frames_u8: np.ndarray, fps: float,
     with ``out_dir=None`` no file is written and the entry holds the
     texture's "frames", "frames_intp" and "audio" instead.
     """
+    if cfg.interpolation and cfg.model_type == 1 and interp_fn is None:
+        found = find_slomo_checkpoint()
+        if found is not None:
+            raise checkpoint_not_ported(
+                found, "SuperSloMo for the interpolated track", "SuperSloMo")
     dev = resolve_device(device)
     frames = np.asarray(frames_u8)
     sr = sample_rate or cfg.sr

@@ -9,29 +9,41 @@ classic baseline's D1 (``avtex/classic/d1.py::pairwise_l2``).
 Kernel: ``avtex_torch/csrc/pairwise_l2.cu``. It replaces the TPU kernel
 ``avtex/ops/pairwise.py::pairwise_l2_pallas`` (``pallas_call`` at line 74).
 The wrapper does what avtex does outside its ``pallas_call``: the reshape,
-the optional normalize and ``sq = sum(x * x, 1)``, in plain torch; the
-kernel does the Gram product in fp32 FMA with the clamp, the diagonal and
-the sqrt fused into its epilogue. It is bound by operations (2 N^2 F).
+the optional normalize and ``sq = |x|^2``, in plain torch (on the card one
+``vector_norm`` read of the rows; the plain version sums ``x * x``); the
+kernels do the Gram product in fp32 FMA, split along F into ``S`` ranges
+whose partial tiles go to a workspace (``torch.empty``, ``S x tiles`` fp32
+128x128 tiles), then sum the partials in split order with the clamp, the
+diagonal and the sqrt fused in. ``_split_plan`` picks ``S`` so that the
+grid fills whole waves of the card. It is bound by operations (N(N+1) F).
 
 Dispatch, one path per device: a CUDA tensor launches the kernel at every
 size or raises (not float32, not contiguous, not 4-byte aligned, operands
 on two devices, a launch error); there is no fallback. A CPU tensor runs
 ``pairwise_l2_reference``, the same Gram form in plain torch.
 
-``launches`` counts the kernel launches made by this wrapper.
+``launches`` counts the calls that launched the kernels (one launch pair
+each).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from . import _build
 
 BK = 512  # feature block of the plain version's fp32 accumulation
+TILE = 128  # the kernel's output tile (rows and columns)
+SLAB = 16  # the kernel's k slab; splits hold whole slabs
+MIN_SPLIT_SLABS = 32  # a split's work must outweigh its 64 KB partial
+FULL_WAVES = 4  # with this many waves of tiles alone, no split
+WORKSPACE_CAP = 256 << 20  # bytes of partial tiles a split plan may add
 launches = 0
 _lib = None
+_blocks_per_sm = None
 
 
 def _rows(feats: torch.Tensor, normalize: bool) -> torch.Tensor:
@@ -70,15 +82,66 @@ def pairwise_l2_reference(feats: torch.Tensor,
     return d2.sqrt()
 
 
+def _split_plan(n: int, f: int, sms: int, blocks_per_sm: int) -> int:
+    """``S``, the number of feature splits for ``n`` rows of ``f`` features
+    on a card of ``sms`` SMs holding ``blocks_per_sm`` blocks each. The
+    kernel gives split ``s`` the 16-wide slabs ``[s*slabs//S,
+    (s+1)*slabs//S)`` of the ``ceil(f / 16)``.
+
+    The grid is ``tiles * S`` blocks. No split when the tiles alone fill
+    ``FULL_WAVES`` waves (which also bounds the workspace at large N);
+    otherwise the ``S`` up to ``MIN_SPLIT_SLABS``-slab splits and the
+    ``WORKSPACE_CAP`` whose last wave is fullest, the smallest on a tie,
+    so a whole number of waves where one exists.
+    """
+    t = -(-n // TILE)
+    tiles = t * (t + 1) // 2
+    wave = sms * blocks_per_sm
+    if tiles >= FULL_WAVES * wave:
+        return 1
+    slabs = -(-f // SLAB)
+    s_max = max(1, min(slabs // MIN_SPLIT_SLABS,
+                       WORKSPACE_CAP // (tiles * TILE * TILE * 4)))
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // wave) * wave)
+    return max(range(1, s_max + 1), key=lambda s: (fill(s), -s))
+
+
+def plan(n: int, f: int, device) -> Dict[str, int]:
+    """The launch plan of one call on a CUDA ``device``: ``splits``,
+    ``tiles``, ``blocks`` (Gram kernel grid), ``sms``, ``blocks_per_sm``
+    and ``workspace_bytes``."""
+    global _blocks_per_sm
+    if _blocks_per_sm is None:
+        with torch.cuda.device(device):
+            got = _kernel_lib().avtex_pairwise_l2_blocks_per_sm()
+        if got < 1:
+            raise RuntimeError(f"pairwise_l2 occupancy query failed: "
+                               f"CUDA error {-got}")
+        _blocks_per_sm = got
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = _split_plan(n, f, sms, _blocks_per_sm)
+    t = -(-n // TILE)
+    tiles = t * (t + 1) // 2
+    return {"splits": splits, "tiles": tiles, "blocks": tiles * splits,
+            "sms": sms, "blocks_per_sm": _blocks_per_sm,
+            "workspace_bytes": splits * tiles * TILE * TILE * 4}
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
         lib = _build.load("pairwise_l2")
         fn = lib.avtex_pairwise_l2
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                ctypes.c_longlong,
+                                               ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.avtex_pairwise_l2_blocks_per_sm.argtypes = []
+        lib.avtex_pairwise_l2_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -101,7 +164,9 @@ def pairwise_l2(feats: torch.Tensor, normalize: bool = False) -> torch.Tensor:
     if not feats.is_contiguous():
         raise ValueError("the CUDA kernel takes contiguous rows")
     x = _rows(feats, normalize)
-    return pairwise_l2_gram(x, _sq(x))
+    # |x|^2 in one read of x: (x * x).sum(1) would write and re-read an
+    # [N, F] temporary (~1 ms at the classic path's 1.08 GB of rows)
+    return pairwise_l2_gram(x, torch.linalg.vector_norm(x, dim=1).square())
 
 
 def pairwise_l2_gram(x: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
@@ -121,14 +186,18 @@ def pairwise_l2_gram(x: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 4 or sq.data_ptr() % 4:
         raise ValueError("the CUDA kernel takes 4-byte aligned x and sq")
     n, f = x.shape
+    p = plan(n, f, x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    ws = torch.empty((p["splits"], p["tiles"], TILE, TILE),
+                     dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = _kernel_lib().avtex_pairwise_l2(x.data_ptr(), sq.data_ptr(),
-                                             out.data_ptr(), n, f, stream)
+        rc = _kernel_lib().avtex_pairwise_l2(
+            x.data_ptr(), sq.data_ptr(), out.data_ptr(), ws.data_ptr(), n, f,
+            p["splits"], stream)
     if rc != 0:
         raise RuntimeError(f"pairwise_l2 kernel launch failed: CUDA error "
-                           f"{rc} (N={n}, F={f})")
+                           f"{rc} (N={n}, F={f}, S={p['splits']})")
     global launches
     launches += 1
     return out

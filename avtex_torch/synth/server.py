@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from avtex_torch.checkpoints import (checkpoint_not_ported,
+                                     find_slomo_checkpoint)
 from avtex_torch.config import Config
 from avtex_torch.contrastive.segments import require_segments
 from avtex_torch.device import resolve_device
@@ -99,9 +101,11 @@ class TextureServer:
         """One texture from the resident tables.
 
         Returns {"result": SynthesisResult, "frames", "frames_intp",
-        "audio", "sample_rate", "fps", "timings"}; knobs default to the
-        server's cfg. ``alpha`` weighs driving audio against the video, so
-        it has no effect until driving audio is ported.
+        "audio", "sample_rate", "fps", "jump_count", "timings"}; knobs
+        default to the server's cfg. ``alpha`` weighs driving audio against
+        the video, so it has no effect until driving audio is ported.
+        Interpolating raises ``NotImplementedError`` when a SuperSloMo
+        checkpoint is found: avtex stitches with it.
         """
         if driving_audio is not None:
             raise _not_yet("driving audio", "Audio-conditioned synthesis, -m 2")
@@ -113,6 +117,11 @@ class TextureServer:
         seed = cfg.seed if seed is None else seed
         interpolate = (cfg.interpolation if interpolate is None
                        else interpolate)
+        if stitch and interpolate:
+            found = find_slomo_checkpoint()
+            if found is not None:
+                raise checkpoint_not_ported(
+                    found, "SuperSloMo for the frames at jumps", "SuperSloMo")
         seed_id = min(cfg.start_segment if seed_segment_id is None
                       else seed_segment_id, self.L - 1)
         max_length = int(seconds * self.fps)  # original-rate frames
@@ -127,7 +136,8 @@ class TextureServer:
 
         out = {"result": result, "fps": self.fps, "frames": None,
                "frames_intp": None, "audio": self.audio,
-               "sample_rate": self.sample_rate, "timings": timings}
+               "sample_rate": self.sample_rate, "jump_count": None,
+               "timings": timings}
         if stitch:
             t0 = time.perf_counter()
             stitched = stitch_texture(
@@ -139,4 +149,5 @@ class TextureServer:
             out["frames"] = stitched["frames"]
             out["frames_intp"] = stitched["frames_intp"]
             out["audio"] = stitched["audio"]
+            out["jump_count"] = stitched["jump_count"]
         return out

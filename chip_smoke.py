@@ -31,9 +31,13 @@ non-zero, and no result line is printed):
    stitched with the crossfade;
 6. pairwise_l2 against its plain version on the card: the RGB rows of a
    60 s, 30 fps, 224^2 synthetic video (N = 1800, F = 150528), the same
-   rows normalized, and ragged shapes; squared distances within
-   1e-5 (|x_i|^2 + |x_j|^2) and an exact zero diagonal; kernel, plain and
-   torch.cdist times, and each version's error against an fp64 Gram;
+   rows normalized, and ragged shapes (N = 1, F inside one slab, F shorter
+   than one split, a ragged last split, grids that are not a whole number
+   of waves); squared distances within 1e-5 (|x_i|^2 + |x_j|^2), an exact
+   zero diagonal, an exactly symmetric output and two launches on the same
+   rows bit-identical; the split plan (S, workspace, blocks per SM) and
+   the Gram kernel's registers; kernel, plain and torch.cdist times, and
+   each version's error against an fp64 Gram;
 7. the classic path: run_classic_frames on that video with ClassicConfig()
    defaults (mode 1, RGB, fs 40, 5 sigmas, 900 steps), then one sigma in
    mode 2 and twice in mode 3, and one classic_transition_matrix call; the
@@ -59,6 +63,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -129,6 +134,58 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_registers(log: str) -> dict:
+    """{kernel: registers} from nvcc's ``-Xptxas -v`` report."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    return regs
+
+
+def demangled(name: str) -> str:
+    """``pairwise_gram_kernel<1>`` from its mangled name."""
+    m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:ILb([01])E)?", name)
+    if not m:
+        return name
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def dev_ms(ev) -> float:
+    """Device milliseconds of a ``torch.profiler`` event average."""
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0)) / 1e3
+
+
+def kernel_device_ms(fn) -> dict:
+    """{kernel name: device ms} of one warm call of ``fn``. The call is
+    the profiler's second step: its first step would drop the window's
+    first kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+
+    def ready(prof):
+        out.update({e.key: dev_ms(e) for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == cuda
+                    and dev_ms(e) > 0})
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return out
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -336,11 +393,14 @@ def shape_line(r) -> str:
 
 def check_pairwise(x, normalize: bool, timed: bool):
     """pairwise_l2 against its plain version on rows ``x`` (on the card):
-    the largest |Dk^2 - Dp^2| / (sq_i + sq_j), the exact zero diagonal, and
-    each version's error against an fp64 Gram (diagnostic)."""
+    the largest |Dk^2 - Dp^2| / (sq_i + sq_j), the exact zero diagonal,
+    exact symmetry, a second launch bit-identical to the first, the split
+    plan, and each version's error against an fp64 Gram (diagnostic)."""
     import torch
     from avtex_torch.ops import pairwise
     got = pairwise.pairwise_l2(x, normalize=normalize)
+    repeat = bool(torch.equal(pairwise.pairwise_l2(x, normalize=normalize),
+                              got))
     torch.cuda.synchronize()
     with fp32_exact():
         want = pairwise.pairwise_l2_reference(x, normalize=normalize)
@@ -367,14 +427,22 @@ def check_pairwise(x, normalize: bool, timed: bool):
            "plain_vs_fp64": ratio(want2, true),
            "one_product_vs_fp64": ratio(one, true),
            "diag_zero": bool((got.diagonal() == 0).all()),
-           "symmetric": bool((got == got.t()).all())}
+           "symmetric": bool(torch.equal(got, got.t())), "repeat": repeat,
+           **pairwise.plan(x.shape[0], x.shape[1], x.device)}
     res["ok"] = (res["sq_ratio"] <= SQ_TOL and res["diag_zero"]
+                 and res["symmetric"] and repeat
                  and got.shape == want.shape)
     del got, want, got2, want2, true, one, scale
     if timed:
         n, f = x.shape
         res["ms"] = time_ms(lambda: pairwise.pairwise_l2(x, normalize),
                             reps=5)
+        split = kernel_device_ms(lambda: pairwise.pairwise_l2(x, normalize))
+        res["gram_ms"] = sum(v for k, v in split.items() if "gram" in k)
+        res["epilogue_ms"] = sum(v for k, v in split.items()
+                                 if "epilogue" in k)
+        res["other_device_ms"] = (sum(split.values()) - res["gram_ms"]
+                                  - res["epilogue_ms"])
         with fp32_exact():
             res["plain_ms"] = time_ms(lambda: pairwise.pairwise_l2_reference(
                 x, normalize), reps=3, warmup=1)
@@ -628,7 +696,7 @@ def main() -> int:
     del server, outs
     torch.cuda.empty_cache()
 
-    kernels.append(classic_phases())
+    kernels.append(classic_phases(report))
     kernels.append(stage_phase(cfg, video, state, res))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -639,7 +707,7 @@ def main() -> int:
     return 0
 
 
-def classic_phases() -> dict:
+def classic_phases(build_report: dict) -> dict:
     """Phases 6 and 7; returns pairwise_l2's entry of the kernels line."""
     import dataclasses
 
@@ -657,30 +725,54 @@ def classic_phases() -> dict:
     n, f = feats.shape
 
     # ---- 6. pairwise_l2 vs plain version -------------------------------- #
+    regs = {k: v for k, v in ptxas_registers(
+        build_report["pairwise_l2"]["log"]).items() if "pairwise" in k}
+    gram_regs = max((v for k, v in regs.items() if "gram" in k),
+                    default=None)
     log(f"[6] pairwise_l2 vs plain at N={n} F={f} (RGB rows of the "
         f"{CLASSIC_SECONDS} s video), normalized, and ragged shapes; "
-        f"tolerance |Dk^2 - Dp^2| <= {SQ_TOL:g} (|x_i|^2 + |x_j|^2)")
+        f"tolerance |Dk^2 - Dp^2| <= {SQ_TOL:g} (|x_i|^2 + |x_j|^2); "
+        f"diagonal exactly 0, output exactly symmetric, repeat launches "
+        f"bit-identical; registers "
+        + (", ".join(f"{demangled(k)} {v}" for k, v in regs.items())
+           or "not reported (cached build)"))
     main = check_pairwise(feats, False, True)
+    log(f"    split plan at N={n}, F={f}: S={main['splits']} splits x "
+        f"{main['tiles']} tiles = {main['blocks']} blocks of the Gram "
+        f"kernel, {main['blocks_per_sm']} per SM on {main['sms']} SMs "
+        f"({main['blocks'] / (main['blocks_per_sm'] * main['sms']):.3g} "
+        f"waves); workspace {main['workspace_bytes'] / 1e6:.1f} MB")
     checks = [main, check_pairwise(feats, True, True)]
     g = torch.Generator(device="cuda").manual_seed(6)
-    for rn in (1, 129, 777):
-        for rf in (3, 1001, 12289, 12292):
-            x = torch.randint(0, 256, (rn, rf), generator=g,
-                              device="cuda").float()
-            checks.append(check_pairwise(x, False, False))
+    # N = 1; F inside one slab (3); F shorter than one split (1001, and
+    # 500 at the path's N); a ragged last split (12289); grids that are
+    # not a whole number of waves (N = 129, 777)
+    for rn, rf in [(rn, rf) for rn in (1, 129, 777)
+                   for rf in (3, 1001, 12289, 12292)] + [(n, 500)]:
+        x = torch.randint(0, 256, (rn, rf), generator=g,
+                          device="cuda").float()
+        checks.append(check_pairwise(x, False, False))
     for r in checks:
+        waves = r["blocks"] / (r["blocks_per_sm"] * r["sms"])
+        last = r["F"] - r["F"] // 16 * 16
         line = (f"    N={r['N']:>5} F={r['F']:>6} norm={int(r['normalize'])}"
+                f" S={r['splits']} ({r['blocks']} blocks, {waves:.3g} "
+                f"waves{', last slab ' + str(last) + ' wide' if last else ''})"
                 f": sq ratio {r['sq_ratio']:.3g} (kernel vs fp64 "
                 f"{r['kernel_vs_fp64']:.3g}, plain vs fp64 "
                 f"{r['plain_vs_fp64']:.3g}, one fp32 product vs fp64 "
                 f"{r['one_product_vs_fp64']:.3g}), max |Dk-Dp| "
                 f"{r['max_abs_err']:.4g}, diagonal 0 {r['diag_zero']}, "
-                f"symmetric {r['symmetric']}")
+                f"symmetric {r['symmetric']}, repeat identical "
+                f"{r['repeat']}")
         if "ms" in r:
             line += (f"; ms {r['ms']:.3f} plain {r['plain_ms']:.3f} "
                      f"cdist {r['library_ms']:.3f} bound {r['bound_ms']:.3f}"
                      f" ({r['bound_by']}; the full square "
-                     f"{r['full_square_ms']:.3f})")
+                     f"{r['full_square_ms']:.3f}); device time of one call: "
+                     f"Gram kernel {r['gram_ms']:.3f}, epilogue kernel "
+                     f"{r['epilogue_ms']:.3f}, the wrapper's other kernels "
+                     f"(row norms) {r['other_device_ms']:.3f}")
         log(line)
     bad = [r for r in checks if not r["ok"]]
     if bad:
@@ -814,8 +906,12 @@ def classic_phases() -> dict:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "splits": r["splits"], "registers": gram_regs,
+            "gram_ms": r["gram_ms"], "epilogue_ms": r["epilogue_ms"],
+            "blocks_per_sm": r["blocks_per_sm"],
+            "workspace_mb": r["workspace_bytes"] / 1e6,
             "max_sq_ratio": max(c["sq_ratio"] for c in checks),
-            "per": f"one launch at N={n}, F={f}"}
+            "per": f"one call (a launch pair) at N={n}, F={f}"}
 
 
 def check_stage(x, blocks, stride: int, label: str) -> dict:
@@ -1075,10 +1171,6 @@ def profile_embed(embed, wall_s: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         embed()
-
-    def dev_ms(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0)) / 1e3
 
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [(dev_ms(e), e.count, e.key) for e in prof.key_averages()

@@ -154,6 +154,44 @@ def test_pairwise_kernel_matches_plain_version(cuda, n, f, normalize):
     assert bool((got == got.t()).all())
 
 
+@pytest.mark.parametrize("n,f", [
+    (1, 150528),     # one row, F cut into many splits
+    (129, 12289),    # scalar loads, a ragged last split
+    (777, 12292),    # 28 tiles x S blocks: not a whole number of waves
+    (1800, 500),     # the classic path's N, F shorter than one split
+    (600, 150528),   # the classic path's F
+    (300, 100003),   # scalar loads over many splits, ragged last slab
+])
+def test_pairwise_split_cases_match_plain_version(cuda, n, f):
+    """Every split plan against the plain version within 1e-5 (|x_i|^2 +
+    |x_j|^2); the output exactly symmetric with an exact zero diagonal,
+    and a second launch bit-identical (the splits are summed in a fixed
+    order)."""
+    from avtex_torch.ops import pairwise
+    x = _rgb_rows(n, f, cuda)
+    p = pairwise.plan(n, f, cuda)
+    assert p["splits"] == pairwise._split_plan(n, f, p["sms"],
+                                               p["blocks_per_sm"])
+    assert (p["splits"] > 1) == (f > 2 * 16 * pairwise.MIN_SPLIT_SLABS)
+    got = pairwise.pairwise_l2(x)
+    again = pairwise.pairwise_l2(x)
+    torch.cuda.synchronize()
+    want = pairwise.pairwise_l2_reference(x)
+    sq = (x.double() ** 2).sum(1)
+    err = (got.double() ** 2 - want.double() ** 2).abs()
+    assert bool((err <= 1e-5 * (sq[:, None] + sq[None, :])).all())
+    assert bool((got.diagonal() == 0).all())
+    assert torch.equal(got, got.t())
+    assert torch.equal(got, again)
+
+
+def test_pairwise_two_gram_blocks_per_sm(cuda):
+    """127 registers and 112 KB of shared memory: two Gram-kernel blocks
+    share an SM, the occupancy the split plan counts waves in."""
+    from avtex_torch.ops import pairwise
+    assert pairwise.plan(1800, 150528, cuda)["blocks_per_sm"] == 2
+
+
 @pytest.mark.parametrize("bad", ["float64", "non_contiguous", "cpu_sq"])
 def test_pairwise_kernel_refuses_what_it_does_not_take(cuda, bad):
     from avtex_torch.ops import pairwise
