@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels: the
 // Tensor Memory Accelerator (TMA) loads and stores, mbarriers, bulk
-// copies, wgmma (warpgroup matrix multiply-accumulate) with shared-memory
-// descriptors, ldmatrix / stmatrix, setmaxnreg and named barriers, and
-// the host-side tensor-map encoder.
+// copies, wgmma (warpgroup matrix multiply-accumulate) with A from a
+// shared-memory descriptor or from registers and B from a descriptor,
+// ldmatrix / stmatrix, setmaxnreg and named barriers, and the host-side
+// tensor-map encoder.
 //
 // Layout convention: every TMA box whose inner extent is 64 bf16 (128
 // bytes) is stored with the 128-byte swizzle, so row r of a box sits at
@@ -304,6 +305,77 @@ __device__ __forceinline__ void wgmma_m64k16(float* d, uint64_t desc_a,
     wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
   } else {
     wgmma_m64n256k16(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// The register-fed (RS) form: D[64, n] (+)= A[64, 16] B[n, 16]^T with A in
+// four 32-bit registers a thread, laid out as mma.sync.m16n8k16's A for
+// the warp's 16 rows (warp w % 4 of the warpgroup holds rows 16 (w % 4) ..
+// + 15; a[0] row r, a[1] row r + 8, a[2] and a[3] the same rows 8 columns
+// on, with r = lane / 4 and columns 2 (lane % 4) and + 1: what ldmatrix_x4
+// gives from row lane % 16, column 8 (lane / 16)). B and D as above. The
+// registers of A are read while the product runs: leave them unchanged
+// until a wgmma_wait has retired its group.
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d,
+                                                    const uint32_t* a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63"
+      "}, {%64,%65,%66,%67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_m64k16(float* d, const uint32_t* a,
+                                                uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "n of 64 or 128");
+  if constexpr (N == 64) {
+    wgmma_rs_m64n64k16(d, a, desc_b, scale_d);
+  } else {
+    wgmma_rs_m64n128k16(d, a, desc_b, scale_d);
   }
 }
 

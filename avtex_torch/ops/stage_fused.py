@@ -16,8 +16,9 @@ Kernel: ``avtex_torch/csrc/fused_stage.cu``. It replaces the TPU kernel
 bottleneck: conv1's and conv2's outputs stay in shared memory, each block's
 bf16 output goes through device memory to the next (avtex rounds it to bf16
 there too). avtex's ``interpret`` and ``slices_per_step`` are knobs of the
-TPU's Pallas grid and have no counterpart here: the kernel tiles each slice
-itself.
+TPU's Pallas grid and have no counterpart here: ``plan`` (pure Python,
+tested on the CPU) picks each block's output tile, consumer warpgroups and
+weight-ring depth, and the launcher checks the plan it is given.
 
 Dispatch: a CUDA tensor launches the kernel or raises (the kernel takes
 C_in % 8 == 0, F % 16 == 0, F <= 128, C_out % 16 == 0); there is no
@@ -32,7 +33,8 @@ scale/bias vectors to fp32. Odd H or W at stride 2 raise ``ValueError``
 from __future__ import annotations
 
 import ctypes
-from typing import List, Mapping, NamedTuple, Optional, Sequence
+import functools
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +44,26 @@ from . import _build
 launches = 0
 _lib = None
 BF16 = torch.bfloat16
+
+# The kernel's shapes (avtex_torch/csrc/fused_stage.cu), which the plan
+# counts shared memory and padded work in.
+BM = 64             # rows of one consumer warpgroup's product
+BK = 64             # k slab of every product
+BN3 = 128           # column chunk of conv3 and the projection
+A_STAGES = 4        # slots of the ring of gathered x rows (conv1, projection)
+A_SLOT_BYTES = BM * BK * 2  # a consumer warpgroup's share of one slot
+B_STAGE_BYTES = BN3 * BK * 2
+MAX_SMEM = 232448   # dynamic shared memory one block may use (H100)
+SM_SMEM = 233472    # an SM's shared memory; each block also takes
+CTA_RESERVED = 1024  # this much of it
+WARPGROUPS = (1, 2)  # consumer warpgroups a plan may pick
+B_STAGES = tuple(range(2, 9))  # slots of the weight ring a plan may pick
+# Assumed share of the tensor cores' rate that an SM holding one consumer
+# warpgroup keeps against one holding two (nothing fills the gaps while a
+# warpgroup waits on its loads or runs an epilogue); the plan weighs padded
+# work by it. It decides res3's block 0 (two warpgroups); check it on the
+# card with ``tools/stage_plan_ab.py default res3wg1``.
+ONE_WG_RATE = 0.75
 
 
 class BlockWeights(NamedTuple):
@@ -177,14 +199,121 @@ def stage_weights_from_params(state_dict: Mapping[str, torch.Tensor],
     return blocks
 
 
+def smem_bytes(f: int, warpgroups: int, b_stages: int, halo_rows: int
+               ) -> int:
+    """Dynamic shared memory of one block (``fused_stage.cu::layout``): the
+    weight ring, the ring of gathered x rows, y1 (y2 is written over it;
+    at least 64 rows a warpgroup) in rows of F + 8, both rings' barriers
+    and 1 KB to align the base."""
+    rows = max(halo_rows, BM * warpgroups)
+    return (b_stages * B_STAGE_BYTES + A_STAGES * warpgroups * A_SLOT_BYTES
+            + -(-rows * (f + 8) * 2 // 16) * 16 + 16 * (b_stages + A_STAGES)
+            + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(h: int, w: int, cin: int, f: int, cout: int, stride: int,
+          proj: bool, tile, warpgroups, b_stages) -> tuple:
+    ho, wo = h // stride, w // stride
+    nf = 64 if f <= 64 else 128     # conv1's and conv2's product width
+    nc = -(-cout // BN3) * BN3      # conv3's and the projection's
+    needed = (h * w * cin * f + ho * wo * (9 * f * f + f * cout
+                                           + (cin * cout if proj else 0)))
+    best = None
+    for nwg in (warpgroups,) if warpgroups else WARPGROUPS:
+        m = BM * nwg
+        if tile is not None:
+            th, tw = tile
+            if not (1 <= th <= ho and 1 <= tw <= wo and th * tw <= m):
+                raise ValueError(f"tile {tile} does not fit {ho}x{wo} "
+                                 f"outputs with {nwg} warpgroup(s)")
+            tiles = [tile]
+        else:
+            tiles = [(th, min(wo, m // th)) for th in range(1, min(ho, m) + 1)]
+        for th, tw in tiles:
+            hh, hw = (th - 1) * stride + 3, (tw - 1) * stride + 3
+            n_tiles = -(-ho // th) * -(-wo // tw)
+            work = n_tiles * (-(-hh * hw // m) * m * cin * nf + m * (
+                9 * f * nf + nc * (f + (cin if proj else 0))))
+            for st in (b_stages,) if b_stages else B_STAGES:
+                smem = smem_bytes(f, nwg, st, hh * hw)
+                if smem > MAX_SMEM:
+                    continue
+                per_sm = min(2 if nwg == 1 else 1,
+                             SM_SMEM // (smem + CTA_RESERVED))
+                rate = 1.0 if nwg * per_sm >= 2 else ONE_WG_RATE
+                key = (work / rate, -st, th)
+                if best is None or key < best[0]:
+                    best = (key, (("tile", (th, tw)), ("warpgroups", nwg),
+                                  ("b_stages", st), ("halo", (hh, hw)),
+                                  ("halo_rows", hh * hw),
+                                  ("smem_bytes", smem), ("tiles", n_tiles),
+                                  ("ctas_per_sm", per_sm),
+                                  ("padded_share", 1 - needed / work),
+                                  ("product_widths", (nf, nc))))
+    if best is None:
+        raise ValueError(f"no plan fits {MAX_SMEM} bytes of shared memory "
+                         f"for {h}x{w}, F={f}, stride {stride}")
+    return best[1]
+
+
+def plan(h: int, w: int, cin: int, f: int, cout: int, stride: int,
+         proj: Optional[bool] = None, bt: int = 1, tile=None,
+         warpgroups: Optional[int] = None,
+         b_stages: Optional[int] = None) -> Dict:
+    """The launch plan of one block on ``[bt, h, w, cin]`` slices.
+
+    Keys: ``tile`` (TH, TW) output pixels a CUDA block owns, ``warpgroups``
+    (consumer warpgroups of 64 rows each), ``b_stages`` (slots of the
+    weight ring), ``halo`` (its conv1 input pixels, ``(TH-1)s+3`` x
+    ``(TW-1)s+3``) and ``halo_rows``, ``smem_bytes``, ``tiles`` per slice,
+    ``ctas`` (the grid: one block per tile of the ``bt`` slices),
+    ``ctas_per_sm`` (by shared memory and the kernel's launch bounds),
+    ``padded_share`` (the share of the
+    tensor-core work that is padding: halo recompute, 64-row and 64/128
+    column rounding, ragged tiles) and ``product_widths`` (conv1/conv2 and
+    conv3/projection columns as multiplied).
+
+    Picks the least padded work, weighted by ``ONE_WG_RATE`` where an SM
+    would hold one consumer warpgroup only; then more weight slots. ``tile``,
+    ``warpgroups`` and ``b_stages`` pin a choice; ``proj`` defaults to block
+    0's (a stride or a change of width)."""
+    if proj is None:
+        proj = stride != 1 or cin != cout
+    p = dict(_plan(h, w, cin, f, cout, stride, bool(proj),
+                   None if tile is None else tuple(tile), warpgroups,
+                   b_stages))
+    p["ctas"] = bt * p["tiles"]
+    return p
+
+
+def kernel_plan_check(p: Dict, f: int, device) -> Dict[str, int]:
+    """The kernel's own view of plan ``p`` on a CUDA ``device``: its shared
+    memory (``smem_bytes``, to match the plan's) and the blocks an SM holds
+    by the occupancy query (``ctas_per_sm``)."""
+    lib = _kernel_lib()
+    smem = lib.avtex_fused_block_smem(f, p["warpgroups"], p["b_stages"],
+                                      p["halo_rows"])
+    with torch.cuda.device(device):
+        per_sm = lib.avtex_fused_block_ctas_per_sm(f, p["warpgroups"], smem)
+    if per_sm < 0:
+        raise RuntimeError(f"fused_stage occupancy query failed: CUDA error "
+                           f"{-per_sm}")
+    return {"smem_bytes": smem, "ctas_per_sm": per_sm}
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
         lib = _build.load("fused_stage")
         fn = lib.avtex_fused_block
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.avtex_fused_block_smem.argtypes = [ctypes.c_int] * 4
+        lib.avtex_fused_block_smem.restype = ctypes.c_int
+        lib.avtex_fused_block_ctas_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.avtex_fused_block_ctas_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -207,10 +336,12 @@ def pack_block(blk: BlockWeights, device) -> tuple:
             None if blk.wp is None else m(blk.wp), v(blk.sp), v(blk.bp))
 
 
-def launch_block(x: torch.Tensor, packed: tuple, stride: int
-                 ) -> torch.Tensor:
+def launch_block(x: torch.Tensor, packed: tuple, stride: int,
+                 block_plan: Optional[Dict] = None) -> torch.Tensor:
     """The kernel launch: one bottleneck on CUDA bf16 ``x [BT, H, W, C_in]``
-    (contiguous) with ``pack_block``'s operands."""
+    (contiguous) with ``pack_block``'s operands, under ``block_plan``
+    (default: ``plan`` of the shape). The launcher refuses a plan it
+    cannot run (``RuntimeError``); nothing falls back."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused_stage kernel needs a CUDA tensor; got "
                          f"{x.device}")
@@ -235,6 +366,10 @@ def launch_block(x: torch.Tensor, packed: tuple, stride: int
         raise ValueError(f"the CUDA kernel takes C_in % 8 == 0, F % 16 == 0, "
                          f"F <= 128 and C_out % 16 == 0; got C_in={cin}, "
                          f"F={f}, C_out={cout}")
+    if block_plan is None:
+        block_plan = plan(h, w, cin, f, cout, stride,
+                          proj=packed[9] is not None)
+    th, tw = block_plan["tile"]
     out = torch.empty((bt, h // stride, w // stride, cout), dtype=BF16,
                       device=x.device)
     ptrs = [None if t is None else t.data_ptr() for t in packed]
@@ -242,11 +377,14 @@ def launch_block(x: torch.Tensor, packed: tuple, stride: int
     with torch.cuda.device(x.device):
         rc = _kernel_lib().avtex_fused_block(
             x.data_ptr(), *ptrs, out.data_ptr(), bt, h, w, cin, f, cout,
-            stride, stream)
+            stride, th, tw, block_plan["warpgroups"], block_plan["b_stages"],
+            stream)
     if rc != 0:
         raise RuntimeError(f"fused_stage kernel launch failed: CUDA error "
                            f"{rc} (x {tuple(x.shape)}, F={f}, C_out={cout}, "
-                           f"stride {stride})")
+                           f"stride {stride}, tile {th}x{tw}, "
+                           f"{block_plan['warpgroups']} warpgroup(s), "
+                           f"{block_plan['b_stages']} weight slots)")
     global launches
     launches += 1
     return out

@@ -51,8 +51,12 @@ non-zero, and no result line is printed):
    from stage_weights_from_params(enc.state_dict()); 7 launches (one per
    block); every block against the plain version elementwise and each
    stage by relative Frobenius error; cosine per slice against the
-   model's own blocks (fuse="all" and fuse=False); small and ragged
-   shapes; kernel, wrapper, plain and model-chain times beside the bound.
+   model's own blocks (fuse="all" and fuse=False); a repeat launch
+   bit-identical; small and ragged shapes; kernel, wrapper, plain and
+   model-chain times beside the bound; per block the launch plan
+   (stage_fused.plan: tile, consumer warpgroups, weight slots, shared
+   memory, CTAs and the occupancy query's CTAs per SM, padded share), the
+   kernel's -Xptxas -v registers, ms, TFLOP/s and share of its bound.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -151,11 +155,17 @@ def ptxas_registers(log: str) -> dict:
 
 
 def demangled(name: str) -> str:
-    """``pairwise_gram_kernel<1>`` from its mangled name."""
-    m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:ILb([01])E)?", name)
-    if not m:
-        return name
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    """``pairwise_gram_kernel<1>`` or ``fused_block_kernel<128,1>`` from a
+    mangled name (a length-prefixed identifier ending in ``kernel``, then
+    its integer template arguments)."""
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", name):
+        start = m.start() + len(m.group(1))
+        ident = name[start:start + int(m.group(1))]
+        if ident.endswith("kernel"):
+            t = re.match(r"I((?:L[a-z]+\d+E)+)E", name[start + len(ident):])
+            args = re.findall(r"\d+", t.group(1)) if t else []
+            return ident + (f"<{','.join(args)}>" if args else "")
+    return name
 
 
 def dev_ms(ev) -> float:
@@ -506,7 +516,9 @@ def main() -> int:
         f"{len(report)} source(s)")
     for name, rep in report.items():
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            # (C7519: ptxas notes each warpgroup.arrive it adds, many)
+            if (("registers" in line or "spill" in line or "smem" in line
+                 or "C7512" in line) and "C7519" not in line):
                 log(f"    {name}: {line.strip()}")
 
     # ---- 3. kernel vs plain version -------------------------------------- #
@@ -697,7 +709,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.append(classic_phases(report))
-    kernels.append(stage_phase(cfg, video, state, res))
+    kernels.append(stage_phase(cfg, video, state, res, report))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -978,7 +990,21 @@ def random_stage(cin, f, cout, n_blocks, seed):
     return blocks
 
 
-def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
+def block_bound_times(bt, h, w, cin, f, cout, stride, proj):
+    """(bytes ms, operations ms) of one bottleneck launch: its input read
+    once, its output written once and its weights read once over the HBM
+    rate; its operations over the bf16 tensor-core peak."""
+    ho, wo = h // stride, w // stride
+    wbytes = 2 * (cin * f + 9 * f * f + f * cout + (cin * cout if proj
+                                                     else 0))
+    nbytes = 2 * bt * (h * w * cin + ho * wo * cout) + wbytes
+    return (nbytes / PEAK_BYTES_S * 1e3,
+            block_flops(bt, h, w, cin, f, cout, stride, proj)
+            / PEAK_BF16_FLOP_S * 1e3)
+
+
+def stage_phase(cfg, video: np.ndarray, state: dict, res: int,
+                build_report: dict) -> dict:
     """Phase 8; returns fused_stage's entry of the kernels line."""
     import torch
     from avtex_torch.data.preprocess import preprocess_clip
@@ -1024,12 +1050,18 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
             raise AssertionError(f"{name} input is not channels-last")
         xs[name] = rows.reshape(-1, c.shape[3], c.shape[4], c.shape[1])
         blocks[name] = sf.stage_weights_from_params(sd, ids)
+    regs = {demangled(k): v for k, v in ptxas_registers(
+        build_report["fused_stage"]["log"]).items()}
     log(f"[8] fused_stage on slow res2 and res3 of the full-width encoder, "
         f"inputs captured from one forward of {n_clips} clips: "
         + ", ".join(f"{k} {tuple(v.shape)}" for k, v in xs.items())
         + f"; gates: block err <= {STAGE_RTOL:g}|ref| + {STAGE_ATOL:g}, "
           f"stage rel Frobenius <= {STAGE_FRO:g}, cosine vs the model's "
-          f"blocks >= {STAGE_COS:g} per slice")
+          f"blocks >= {STAGE_COS:g} per slice, a repeat launch "
+          f"bit-identical; kernel registers (-Xptxas -v, at entry; "
+          f"setmaxnreg gives the consumers more) "
+        + (", ".join(f"{k} {v}" for k, v in sorted(regs.items()))
+           or "not reported (cached build)"))
 
     # the path: both stages through the wrapper, counts read around it
     with torch.inference_mode():
@@ -1048,6 +1080,11 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
     with torch.inference_mode():
         for name, (ids, stride) in STAGES.items():
             x, out = xs[name], outs[name]
+            repeat = bool(torch.equal(sf.fused_stage(x, blocks[name], stride),
+                                      out))
+            log(f"    {name}: a repeat launch bit-identical: {repeat}")
+            if not repeat:
+                problems.append(f"{name}: a repeat launch differs")
             checks.append(check_stage(x, blocks[name], stride,
                                       f"{name} at BT={x.shape[0]}"))
             c = caps[name]
@@ -1087,13 +1124,45 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
             for i, p in enumerate(packed[:-1]):
                 ins.append(sf.launch_block(ins[-1], p, stride if i == 0
                                            else 1))
-            block_ms = [time_ms(lambda i=i: sf.launch_block(
-                ins[i], packed[i], stride if i == 0 else 1), reps=5)
-                for i in range(len(packed))]
-            block_tflops = [
-                block_flops(bt, *ins[i].shape[1:], f, cout,
-                            stride if i == 0 else 1, i == 0) / ms / 1e9
-                for i, ms in enumerate(block_ms)]
+            block_ms, block_tflops, plans = [], [], []
+            for i, xi in enumerate(ins):
+                st = stride if i == 0 else 1
+                pl = sf.plan(*xi.shape[1:], f, cout, st, proj=i == 0,
+                             bt=xi.shape[0])
+                seen = sf.kernel_plan_check(pl, f, x.device)
+                ms = time_ms(lambda: sf.launch_block(xi, packed[i], st, pl),
+                             reps=5)
+                b_bytes, b_ops = block_bound_times(*xi.shape, f, cout, st,
+                                                   i == 0)
+                kname = (f"fused_block_kernel<{64 if f <= 64 else 128},"
+                         f"{pl['warpgroups']}>")
+                block_ms.append(ms)
+                block_tflops.append(block_flops(*xi.shape, f, cout, st,
+                                                i == 0) / ms / 1e9)
+                plans.append({
+                    "block": f"{name}.{i}", "tile": list(pl["tile"]),
+                    "warpgroups": pl["warpgroups"],
+                    "b_stages": pl["b_stages"],
+                    "smem_bytes": pl["smem_bytes"], "ctas": pl["ctas"],
+                    "ctas_per_sm": seen["ctas_per_sm"],
+                    "padded_share": pl["padded_share"], "kernel": kname,
+                    "registers": regs.get(kname), "ms": ms,
+                    "tflop_s": block_tflops[-1],
+                    "bound_ms": max(b_bytes, b_ops)})
+                log(f"      block {i}: plan tile {pl['tile'][0]}x"
+                    f"{pl['tile'][1]}, {pl['warpgroups']} consumer "
+                    f"warpgroup(s), {pl['b_stages']} weight slots, "
+                    f"{pl['smem_bytes']} B shared memory, {pl['ctas']} CTAs "
+                    f"({seen['ctas_per_sm']} per SM by the occupancy query), "
+                    f"padded share {pl['padded_share']:.3f}; {kname} "
+                    f"{regs.get(kname, '?')} registers; {ms:.3f} ms, "
+                    f"{block_tflops[-1]:.0f} TFLOP/s, "
+                    f"{100 * max(b_bytes, b_ops) / ms:.1f}% of its bound "
+                    f"{max(b_bytes, b_ops):.3f} ms")
+                if seen != {"smem_bytes": pl["smem_bytes"],
+                            "ctas_per_sm": pl["ctas_per_sm"]}:
+                    problems.append(f"{name} block {i}: the kernel sees "
+                                    f"{seen} for plan {pl}")
             del ins
             r = {"ms": time_ms(kernel_only, reps=5),
                  "wrapper_ms": time_ms(
@@ -1107,7 +1176,7 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
                  "handoff_ms": t_hand, "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "launches": len(ids), "block_ms": block_ms,
-                 "block_tflop_s": block_tflops}
+                 "block_tflop_s": block_tflops, "plans": plans}
             with fp32_exact():
                 r["plain_ms"] = time_ms(lambda: sf.stage_reference(
                     x, blocks[name], stride), reps=2, warmup=1)
@@ -1146,6 +1215,8 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
     def total(key):
         return sum(r[key] for r in rows_out.values())
 
+    plans = [pl for r in rows_out.values() for pl in r.pop("plans")]
+
     return {"name": "fused_stage", "route": "cuda",
             "source": "avtex_torch/csrc/fused_stage.cu",
             "replaces": "avtex/ops/stage_fused.py:293", "launches": launches,
@@ -1158,6 +1229,7 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int) -> dict:
             "chain_fuse_all_ms": total("chain_fuse_all_ms"),
             "chain_cudnn_ms": total("chain_cudnn_ms"),
             "max_stage_fro": max(c["fro"] for c in checks),
+            "registers": regs or None, "plan": plans,
             "per": f"slow res2 + res3 at BT={n_clips * 8} "
                    f"({STAGE_LAUNCHES} launches)",
             "stages": rows_out}

@@ -316,3 +316,97 @@ def test_stage_launch_refuses_float32(cuda):
     with pytest.raises(TypeError):
         stage_fused.launch_block(x, stage_fused.pack_block(blocks[0], cuda),
                                  1)
+
+
+def _one_block(cin, f, cout, proj, cuda, bt, h, w, seed=3):
+    from avtex_torch.ops import stage_fused
+    blk = _stage(cin, f, cout, 1, cuda, proj, seed)[0]
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    x = torch.randn(bt, h, w, cin, generator=g).to(cuda, torch.bfloat16)
+    return x, blk, stage_fused.pack_block(blk, cuda)
+
+
+@pytest.mark.parametrize("f,stride", [(16, 1), (16, 2), (32, 1), (32, 2),
+                                      (48, 1)])
+def test_stage_padded_widths_match_plain_version(cuda, f, stride):
+    """F below 64 multiplies padded to 64 columns: the zero-filled weight
+    rows and the masked epilogue leave the plain version's output."""
+    from avtex_torch.ops import stage_fused
+    x, blk, packed = _one_block(40, f, 96, True, cuda, 5, 14, 18)
+    p = stage_fused.plan(14, 18, 40, f, 96, stride)
+    assert p["product_widths"] == (64, 128)
+    got = stage_fused.launch_block(x, packed, stride, p)
+    want = stage_fused._block_reference(x, blk, stride)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_stage_res3_block0_under_its_shared_memory_plan(cuda):
+    """Res3 block 0 (stride 2, C_in 320, F 128): the largest halo; the
+    kernel's own shared-memory count and occupancy agree with the plan."""
+    from avtex_torch.ops import stage_fused
+    x, blk, packed = _one_block(320, 128, 512, True, cuda, 3, 56, 56)
+    p = stage_fused.plan(56, 56, 320, 128, 512, 2, bt=3)
+    assert stage_fused.kernel_plan_check(p, 128, cuda) == {
+        "smem_bytes": p["smem_bytes"], "ctas_per_sm": p["ctas_per_sm"]}
+    got = stage_fused.launch_block(x, packed, 2, p)
+    want = stage_fused._block_reference(x, blk, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("shape,tile", [
+    ((56, 56, 80, 64, 256, 1), (8, 12)),   # 140 halo rows: the second
+                                           # warpgroup's last chunk is padding
+    ((28, 28, 512, 128, 512, 1), (4, 8)),  # 32 pixels: the second warpgroup
+                                           # multiplies only padding rows
+    ((56, 56, 320, 128, 512, 2), (4, 8)),  # stride 2, 9 x 17 halo
+])
+def test_stage_two_warpgroups_with_a_padding_warpgroup(cuda, shape, tile):
+    from avtex_torch.ops import stage_fused
+    h, w, cin, f, cout, s = shape
+    x, blk, packed = _one_block(cin, f, cout, cin != cout or s != 1, cuda,
+                                2, h, w)
+    p = stage_fused.plan(h, w, cin, f, cout, s, tile=tile, warpgroups=2,
+                         b_stages=3)
+    assert stage_fused.kernel_plan_check(p, f, cuda)["smem_bytes"] == \
+        p["smem_bytes"]
+    got = stage_fused.launch_block(x, packed, s, p)
+    want = stage_fused._block_reference(x, blk, s)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_stage_second_launch_is_bit_identical(cuda):
+    """No atomics and a fixed order of every sum: a repeat launch on the
+    same inputs gives the same bits."""
+    from avtex_torch.ops import stage_fused
+    blocks = _stage(80, 64, 256, 3, cuda)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn(4, 56, 56, 80, generator=g).to(cuda, torch.bfloat16)
+    first = stage_fused.fused_stage(x, blocks, 1)
+    assert torch.equal(stage_fused.fused_stage(x, blocks, 1), first)
+
+
+_RES2_B0 = (56, 56, 80, 64, 256, 1)
+
+
+@pytest.mark.parametrize("shape,bad", [
+    (_RES2_B0, dict(tile=(9, 8), warpgroups=1, b_stages=4)),  # 72 > 64 rows
+    (_RES2_B0, dict(tile=(1, 57), warpgroups=1, b_stages=4)),  # past W
+    (_RES2_B0, dict(tile=(8, 8), warpgroups=3, b_stages=4)),
+    (_RES2_B0, dict(tile=(8, 8), warpgroups=1, b_stages=1)),
+    (_RES2_B0, dict(tile=(8, 8), warpgroups=1, b_stages=9)),
+    # res3 block 0 at two warpgroups, 8 x 16: a 17 x 33 halo, over 227 KB
+    ((56, 56, 320, 128, 512, 2), dict(tile=(8, 16), warpgroups=2,
+                                      b_stages=4)),
+])
+def test_stage_launcher_refuses_a_plan_it_cannot_run(cuda, shape, bad):
+    """The launcher returns an error, nothing runs, the counter stays."""
+    from avtex_torch.ops import stage_fused
+    h, w, cin, f, cout, s = shape
+    x, _, packed = _one_block(cin, f, cout, True, cuda, 1, h, w)
+    before = stage_fused.launches
+    with pytest.raises(RuntimeError):
+        stage_fused.launch_block(x, packed, s, bad)
+    assert stage_fused.launches == before
