@@ -16,9 +16,12 @@ Device contract: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of running on the CPU
 (``avtex_torch.device.resolve_device``).
 
-Ported so far: contrastive synthesis with SlowFast-R50 (``-m 1 -e``,
-``norm="affine"``), served warm by ``avtex_torch.synth.TextureServer``;
-the classic Schödl baseline with RGB features, modes 1-3
+Ported so far: contrastive synthesis (``-m 1 -e``) with SlowFast-R50 (its
+stems in space-to-depth form) or the 3D ResNets, served warm by
+``avtex_torch.synth.TextureServer``, SuperSloMo at jumps from a found
+checkpoint, avtex's checkpoint files (``avtex_torch.train``) and the
+``-e`` CLI (``python -m avtex_torch.cli.main``); the classic Schödl
+baseline with RGB features, modes 1-3
 (``avtex_torch.classic.run_classic_frames``, ``python -m
 avtex_torch.cli.classic_main``).
 """

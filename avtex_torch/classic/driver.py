@@ -12,26 +12,25 @@ The walk is ``sample_texture_walk_host`` with
 ``np.random.default_rng(cfg.seed + i)`` for the i-th sigma; avtex walks on
 the device with ``jax.random.key(cfg.seed + i)``, which torch cannot
 reproduce: the same distribution, another stream. Jumps are interpolated
-with the crossfade unless ``interp_fn`` is given (avtex does the same
-without a SuperSloMo checkpoint); in mode 1 without ``interp_fn``,
-a SuperSloMo checkpoint that is found raises ``NotImplementedError``,
-since avtex would interpolate with it.
+with ``interp_fn`` if given, else (mode 1) with SuperSloMo from a
+checkpoint that ``find_slomo_checkpoint`` finds, loaded once per run,
+else with the crossfade, as avtex does.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from avtex_torch.checkpoints import (checkpoint_not_ported,
-                                     find_slomo_checkpoint)
+from avtex_torch.checkpoints import maybe_make_slomo_interp_fn
 from avtex_torch.config import ClassicConfig
 from avtex_torch.device import resolve_device
 from avtex_torch.obs import Logger
+from avtex_torch.synth.interp import InterpFn
 from avtex_torch.synth.stitcher import crossfade
 
 from .d1 import compute_d1, distance_to_transition_probs
@@ -40,8 +39,6 @@ from .features import frame_features
 from .future_cost import anticipated_future_cost, threshold_rows
 from .interp_track import burn_position_bars, classic_interp_track
 from .sampler import expand_walk_to_frames, sample_texture_walk_host
-
-InterpFn = Callable[[np.ndarray, np.ndarray, int], np.ndarray]
 
 
 def run_classic(cfg: ClassicConfig, video_path: str,
@@ -89,12 +86,9 @@ def run_classic_frames(cfg: ClassicConfig, frames_u8: np.ndarray, fps: float,
     with ``out_dir=None`` no file is written and the entry holds the
     texture's "frames", "frames_intp" and "audio" instead.
     """
-    if cfg.interpolation and cfg.model_type == 1 and interp_fn is None:
-        found = find_slomo_checkpoint()
-        if found is not None:
-            raise checkpoint_not_ported(
-                found, "SuperSloMo for the interpolated track", "SuperSloMo")
     dev = resolve_device(device)
+    if cfg.interpolation and cfg.model_type == 1 and interp_fn is None:
+        interp_fn = maybe_make_slomo_interp_fn(device=dev)
     frames = np.asarray(frames_u8)
     sr = sample_rate or cfg.sr
     feats, normalize = frame_features(cfg.feats, frames, dev)

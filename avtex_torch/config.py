@@ -110,6 +110,30 @@ class Config:
                           else stride),
         )
 
+    def train_logname(self, video_name: str) -> str:
+        """Experiment-identity string of a training run (reference:
+        main.py:398-415); names its checkpoints."""
+        vd = os.path.split(self.vdata)[-1] if self.vdata else "none"
+        return (
+            f"{self.logname}_model_{self.model_type}_vd_{vd}_vn_{video_name}"
+            f"_bs_{self.batch_size}_negs_{self.n_negs}_w_{self.window}"
+            f"_stride_{self.stride}_temp_{self.temp}_th_{self.threshold}"
+            f"_enca_{self.enc_arch}_subr_{self.subsample_rate}_eval_False"
+        )
+
+    def default_ckpt_path(self, video_name: str) -> str:
+        """The best checkpoint a synthesis run loads when -resume is empty
+        (reference: main.py:520-534): training's name with ``exp``,
+        temp 0.1 and threshold 0.0 fixed, as the reference derives it."""
+        vd = os.path.split(self.vdata)[-1] if self.vdata else "none"
+        return os.path.join(
+            self.ckpt,
+            f"exp_model_{self.model_type}_vd_{vd}_vn_{video_name}"
+            f"_bs_{self.batch_size}_negs_{self.n_negs}_w_{self.window}"
+            f"_stride_{self.stride}_temp_0.1_th_0.0_enca_{self.enc_arch}"
+            f"_subr_{self.subsample_rate}_eval_False_best",
+        )
+
     def eval_logname(self, video_name: str) -> str:
         """Experiment-identity string for synthesis outputs."""
         vd = os.path.split(self.vdata)[-1] if self.vdata else "none"

@@ -11,6 +11,10 @@ mapping is a renaming plus layout changes:
 - ``Affine_k/{scale,bias}``: unchanged;
 - ``GroupNorm_k/{scale,bias}`` -> ``GroupNorm_k.{weight,bias}``.
 
+``export_params(state_dict)`` is the inverse: the port's parameters as
+avtex's tree (``{"params": ...}``, float32 numpy), e.g. for
+``avtex_torch.train.save_checkpoint``.
+
 Pinned names (avtex/nn/slowfast.py): ``SFBottleneck_{0..}`` interleaved
 slow/fast, top-level ``Conv_0`` (slow stem) and ``Conv_1..4`` (laterals),
 ``Affine_0..5`` / ``GroupNorm_0..5``. Unknown and missing keys raise,
@@ -81,3 +85,27 @@ def convert_params(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
         raise KeyError(f"parameter trees do not match: unknown avtex keys "
                        f"{sorted(unknown)}; missing port keys {missing}")
     return out
+
+
+_DHWIO = (2, 3, 4, 1, 0)
+
+
+def export_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``state_dict`` -> avtex's parameter tree
+    ``{"params": {...}}`` of float32 numpy arrays (conv kernels OIDHW ->
+    DHWIO, ``GroupNorm_k.weight`` -> ``GroupNorm_k/scale``); the inverse
+    of ``convert_params``."""
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        *mods, leaf = key.split(".")
+        arr = value.detach().float().cpu().numpy()
+        if leaf == "fast_stem_kernel" or (leaf == "weight" and arr.ndim == 5):
+            arr = arr.transpose(_DHWIO)
+            leaf = leaf if leaf == "fast_stem_kernel" else "kernel"
+        elif mods and mods[-1].startswith("GroupNorm_") and leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}

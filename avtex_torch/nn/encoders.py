@@ -1,8 +1,9 @@
 """Encoder registry (the port of avtex/nn/encoders.py:47-81).
 
 ``build_encoder(arch)`` returns ``(module, feat_dim, input_kind)``;
-input_kind "slowfast" means a ``(slow, fast)`` pathway tuple from
-``slowfast_pathways``. Only SlowFast-R50 is ported so far; every other
+input_kind "clip" means ``[B, T, H, W, 3]`` windows, "slowfast" a
+``(slow, fast)`` pathway tuple from ``slowfast_pathways``. Ported:
+SlowFast-R50 and the 3D ResNets (``resnet10/18/34/50``); every other
 avtex arch raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
 """
@@ -13,15 +14,15 @@ from typing import Any
 
 import torch
 
-from . import slowfast
+from . import resnet3d, slowfast
 
-_PORTED = {"slowfast": (slowfast.SlowFastR50, "slowfast")}
+_PORTED = {"slowfast": (slowfast.SlowFastR50, "slowfast"),
+           "resnet10": (resnet3d.resnet3d10, "clip"),
+           "resnet18": (resnet3d.resnet3d18, "clip"),
+           "resnet34": (resnet3d.resnet3d34, "clip"),
+           "resnet50": (resnet3d.resnet3d50, "clip")}
 
 _LATER = {
-    "resnet10": "ROADMAP.md Queue 1 'CLI default encoder' (ResNet3D)",
-    "resnet18": "ROADMAP.md Queue 1 'CLI default encoder' (ResNet3D)",
-    "resnet34": "ROADMAP.md Queue 1 'CLI default encoder' (ResNet3D)",
-    "resnet50": "ROADMAP.md Queue 1 'CLI default encoder' (ResNet3D)",
     "resnext50": "ROADMAP.md Queue 1 'Remaining encoders'",
     "resnext101": "ROADMAP.md Queue 1 'Remaining encoders'",
     "resnext152": "ROADMAP.md Queue 1 'Remaining encoders'",
@@ -37,7 +38,7 @@ def build_encoder(arch: str, dtype: torch.dtype = torch.bfloat16,
     """Instantiate a video encoder: (module, feat_dim, input_kind).
 
     ``kwargs`` reach the encoder's constructor (SlowFast: ``layers``,
-    ``width``, ``fuse``).
+    ``width``, ``fuse``, ``s2d_stem``; ResNet3D: ``layers``, ``width``).
     """
     if arch in _LATER:
         raise NotImplementedError(

@@ -17,9 +17,12 @@ Module and parameter names follow the flax tree (``Conv_k``, ``Affine_k``
 / ``GroupNorm_k``, ``fast_stem_kernel``, ``SFBottleneck_{2i}`` slow /
 ``SFBottleneck_{2i+1}`` fast) so ``avtex_torch.convert`` is a renaming.
 
-The stems are plain ``conv3d``: avtex's space-to-depth stem
-(avtex/ops/s2d_stem.py) is a re-expression of the same arithmetic for the
-TPU's matrix unit, not a kernel.
+Stems: with ``s2d_stem`` (avtex's field) and H, W multiples of 4, the
+stems run through the space-to-depth form of the same arithmetic
+(avtex_torch/ops/s2d_stem.py): in affine mode both whole stems (conv,
+affine, ReLU, pool) in s2d space, in group mode the fast stem's conv only.
+Otherwise both are one plain ``conv3d``. The parameters are the same
+either way, so the flag can flip on any checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avtex_torch.ops.fused_matmul import fused_conv1x1
+from avtex_torch.ops.s2d_stem import fast_stem_s2d, fast_stem_s2d_pooled
 
 from .resnet3d import make_norm, norm_prefix
 
@@ -53,6 +57,7 @@ SLOW_FRAMES = FAST_FRAMES // ALPHA
 KERNEL_MIN_CHANNELS = 64
 
 CL3D = torch.channels_last_3d
+STEMS_RANGE = "slowfast_stems"
 
 
 def _conv(cin: int, cout: int, kernel: Tuple[int, int, int],
@@ -161,14 +166,16 @@ class SlowFastR50(nn.Module):
     ``dtype`` is the activation and conv-weight dtype; norm parameters
     stay fp32 as in avtex. ``fuse`` defaults to ``"all"`` for
     ``norm="affine"``, so the inference path launches the 1x1 kernel.
+    ``s2d_stem`` runs the stems in space-to-depth form (module docstring).
     """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  dtype: torch.dtype = torch.bfloat16, norm: str = "group",
-                 fuse: Union[bool, str] = "all"):
+                 fuse: Union[bool, str] = "all", s2d_stem: bool = True):
         super().__init__()
         self.layers, self.width, self.dtype, self.norm = (
             tuple(layers), width, dtype, norm)
+        self.s2d_stem = s2d_stem
         w, wf = width, width // BETA_INV
         p = norm_prefix(norm)
 
@@ -217,18 +224,38 @@ class SlowFastR50(nn.Module):
         y = getattr(self, f"Conv_{norm_idx - 1}")(fast)
         return torch.relu(self._named_norm(norm_idx)(y))
 
-    def forward(self, slow: torch.Tensor, fast: torch.Tensor) -> torch.Tensor:
+    def _stems(self, slow: torch.Tensor, fast: torch.Tensor):
+        """Both stems on channels-last clips -> pooled NCDHW activations
+        in channels_last_3d memory."""
+        slow, fast = slow.to(self.dtype), fast.to(self.dtype)
+        h, w = fast.shape[2:4]
+        use_s2d = self.s2d_stem and h % 4 == 0 and w % 4 == 0
+        if use_s2d and self.norm == "affine":
+            a0, a1 = self._named_norm(0), self._named_norm(1)
+            slow = fast_stem_s2d_pooled(slow, self.Conv_0.weight, a0.scale,
+                                        a0.bias)
+            fast = fast_stem_s2d_pooled(fast, self.fast_stem_kernel,
+                                        a1.scale, a1.bias)
+            return slow.permute(0, 4, 1, 2, 3), fast.permute(0, 4, 1, 2, 3)
         # [B, T, H, W, C] -> NCDHW views in channels_last_3d memory
-        slow = slow.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(
-            memory_format=CL3D)
-        fast = fast.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(
-            memory_format=CL3D)
+        slow = slow.permute(0, 4, 1, 2, 3).contiguous(memory_format=CL3D)
         slow = torch.relu(self._named_norm(0)(self.Conv_0(slow)))
-        fast = F.conv3d(fast, self.fast_stem_kernel, stride=(1, 2, 2),
-                        padding=(2, 3, 3))
+        if use_s2d:
+            fast = fast_stem_s2d(fast, self.fast_stem_kernel).permute(
+                0, 4, 1, 2, 3)
+        else:
+            fast = fast.permute(0, 4, 1, 2, 3).contiguous(memory_format=CL3D)
+            fast = F.conv3d(fast, self.fast_stem_kernel, stride=(1, 2, 2),
+                            padding=(2, 3, 3))
         fast = torch.relu(self._named_norm(1)(fast))
         slow = F.max_pool3d(slow, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         fast = F.max_pool3d(fast, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        return slow, fast
+
+    def forward(self, slow: torch.Tensor, fast: torch.Tensor) -> torch.Tensor:
+        # a named range, so a profile can attribute the stems' device time
+        with torch.profiler.record_function(STEMS_RANGE):
+            slow, fast = self._stems(slow, fast)
         slow = torch.cat([slow, self._lateral(fast, 2)], dim=1)
 
         block_idx = 0

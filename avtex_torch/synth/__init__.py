@@ -3,7 +3,8 @@
 - ``embeddings.py``: every segment through both towers once -> [L, D]
   query and target tables on the device.
 - ``engine.py``: the ``[L, L]`` logits and the reference's per-step walk.
-- ``stitcher.py``: frame/audio assembly, crossfade at jumps.
+- ``stitcher.py``: frame/audio assembly, crossfade at jumps;
+  ``interp.py``: SuperSloMo as the stitcher's ``interp_fn``.
 - ``pipeline.py`` / ``server.py``: one-shot and warm-serving entry points.
 """
 

@@ -9,10 +9,10 @@ entropy and survivor bar plots and the HTML report, as avtex does. With a
 ``logger`` it logs avtex's scalars (and with ``cfg.visualize_evaluate``,
 ``-ve``, the jump-frame strips and the probability-row figures).
 
-Ported: ``model_type=1`` without driving audio. Not yet: driving audio,
-the device scan walk, SuperSloMo at jumps (the crossfade stitches, as in
-avtex when no SuperSloMo checkpoint exists), multi-GPU and CAM videos
-(``cfg.vcam``). Where avtex would load a pretrained encoder or SuperSloMo
+Ported: ``model_type=1`` without driving audio, with SuperSloMo at jumps
+(``interp_fn``, or one loaded from a found ``SuperSloMo.ckpt``, else the
+crossfade). Not yet: driving audio, the device scan walk, multi-GPU and
+CAM videos (``cfg.vcam``). Where avtex would load a pretrained encoder
 file that it finds, the port raises ``NotImplementedError``.
 """
 
@@ -98,7 +98,7 @@ def synthesize(cfg: Config, video_path: str, params=None,
                audio_path: Optional[str] = None,
                driving_audio_path: Optional[str] = None,
                out_dir: Optional[str] = None, logger=None,
-               walk_on_device: bool = False, device=None,
+               walk_on_device: bool = False, device=None, interp_fn=None,
                **encoder_kwargs: Any) -> Dict:
     """Synthesize one texture from a video file (decode, then
     ``synthesize_frames``)."""
@@ -111,7 +111,7 @@ def synthesize(cfg: Config, video_path: str, params=None,
         name=os.path.splitext(os.path.basename(video_path))[0],
         audio_path=audio_path, driving_audio_path=driving_audio_path,
         out_dir=out_dir, logger=logger, walk_on_device=walk_on_device,
-        device=device, **encoder_kwargs)
+        device=device, interp_fn=interp_fn, **encoder_kwargs)
     out["timings"]["decode_s"] = decode_s
     return out
 
@@ -122,11 +122,13 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
                       driving_audio_path: Optional[str] = None,
                       out_dir: Optional[str] = None, logger=None,
                       walk_on_device: bool = False, device=None,
-                      **encoder_kwargs: Any) -> Dict:
+                      interp_fn=None, **encoder_kwargs: Any) -> Dict:
     """Synthesize one texture from decoded uint8 RGB frames [T, H, W, 3]:
     ``TextureServer.from_frames`` and one request with the cfg's knobs.
 
     ``params`` is the port's state_dict (None: seeded flax-style init);
+    ``interp_fn`` makes the frames at jumps (None: SuperSloMo from a found
+    checkpoint, else the crossfade);
     ``encoder_kwargs`` reach the encoder (e.g. ``width``, ``layers``).
     ``logger`` takes ``log_scalar`` (and with ``cfg.visualize_evaluate``
     ``log_video`` and ``log_figure``), as ``avtex_torch.obs.Logger``.
@@ -143,7 +145,7 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
         raise _not_yet("CAM videos (-vcam)", "Contrastive extras")
     server = TextureServer.from_frames(
         cfg, frames_u8, fps, params, audio_path=audio_path, device=device,
-        name=name, **encoder_kwargs)
+        name=name, interp_fn=interp_fn, **encoder_kwargs)
     out = server.synthesize()
     result = out["result"]
     stitched = {k: out[k] for k in ("frames", "frames_intp", "audio",

@@ -6,9 +6,12 @@ avtex/synth/server.py:36-198).
     b = server.synthesize(seconds=60, threshold=0.2, seed=2)
 
 The decoded frames and both embedding tables stay resident; each request
-is one host walk over the ``[L, L]`` logits plus stitching.
-``TextureServer(cfg, video_path, params)`` decodes the file first.
-Driving audio and the device walk raise until their slices land.
+is one host walk over the ``[L, L]`` logits plus stitching, with
+SuperSloMo at jumps when interpolating: ``interp_fn`` if given, else one
+loaded once per server from a checkpoint that ``find_slomo_checkpoint``
+finds, else the crossfade. ``TextureServer(cfg, video_path, params)``
+decodes the file first. Driving audio and the device walk raise until
+their slices land.
 """
 
 from __future__ import annotations
@@ -20,14 +23,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from avtex_torch.checkpoints import (checkpoint_not_ported,
-                                     find_slomo_checkpoint)
+from avtex_torch.checkpoints import maybe_make_slomo_interp_fn
 from avtex_torch.config import Config
 from avtex_torch.contrastive.segments import require_segments
 from avtex_torch.device import resolve_device
 
 from .embeddings import precompute_embeddings_from_video
 from .engine import num_synthesis_steps, synthesize_indices_host
+from .interp import InterpFn
 from .pipeline import _not_yet, build_model
 from .stitcher import stitch_texture
 
@@ -37,31 +40,36 @@ class TextureServer:
 
     def __init__(self, cfg: Config, video_path: str, params=None,
                  audio_path: Optional[str] = None, *, device=None,
+                 interp_fn: Optional[InterpFn] = None,
                  **encoder_kwargs: Any):
         from avtex_torch.media import read_video
         frames, fps = read_video(video_path)
         self._setup(cfg, frames, fps, params, audio_path, device,
                     os.path.splitext(os.path.basename(video_path))[0],
-                    encoder_kwargs)
+                    interp_fn, encoder_kwargs)
 
     @classmethod
     def from_frames(cls, cfg: Config, frames_u8: np.ndarray, fps: float,
                     params=None, *, audio_path: Optional[str] = None,
                     device=None, name: str = "texture",
+                    interp_fn: Optional[InterpFn] = None,
                     **encoder_kwargs: Any) -> "TextureServer":
         """Serve already-decoded uint8 RGB frames [T, H, W, 3].
 
         ``params`` is the port's state_dict (None: seeded flax-style init);
+        ``interp_fn(frame0, frame1, n_mid)`` makes the frames at jumps
+        (None: SuperSloMo from a found checkpoint, else the crossfade);
         ``encoder_kwargs`` reach the encoder (e.g. ``width``, ``layers``).
         """
         self = cls.__new__(cls)
         self._setup(cfg, frames_u8, fps, params, audio_path, device, name,
-                    encoder_kwargs)
+                    interp_fn, encoder_kwargs)
         return self
 
     def _setup(self, cfg, frames_u8, fps, params, audio_path, device, name,
-               encoder_kwargs):
+               interp_fn, encoder_kwargs):
         self.device = resolve_device(device)
+        self._interp_fn = interp_fn
         self.video_full, self.fps = np.asarray(frames_u8), float(fps)
         self.cfg = cfg.derive_geometry(self.fps)
         self.sub = max(1, int(cfg.subsample_rate))
@@ -104,8 +112,9 @@ class TextureServer:
         "audio", "sample_rate", "fps", "jump_count", "timings"}; knobs
         default to the server's cfg. ``alpha`` weighs driving audio against
         the video, so it has no effect until driving audio is ported.
-        Interpolating raises ``NotImplementedError`` when a SuperSloMo
-        checkpoint is found: avtex stitches with it.
+        Until the server has an ``interp_fn``, an interpolating request
+        looks for a SuperSloMo checkpoint and loads it (kept for later
+        requests), reporting the time as ``timings["interp_load_s"]``.
         """
         if driving_audio is not None:
             raise _not_yet("driving audio", "Audio-conditioned synthesis, -m 2")
@@ -117,11 +126,6 @@ class TextureServer:
         seed = cfg.seed if seed is None else seed
         interpolate = (cfg.interpolation if interpolate is None
                        else interpolate)
-        if stitch and interpolate:
-            found = find_slomo_checkpoint()
-            if found is not None:
-                raise checkpoint_not_ported(
-                    found, "SuperSloMo for the frames at jumps", "SuperSloMo")
         seed_id = min(cfg.start_segment if seed_segment_id is None
                       else seed_segment_id, self.L - 1)
         max_length = int(seconds * self.fps)  # original-rate frames
@@ -139,10 +143,16 @@ class TextureServer:
                "sample_rate": self.sample_rate, "jump_count": None,
                "timings": timings}
         if stitch:
+            if interpolate and self._interp_fn is None:
+                t0 = time.perf_counter()
+                self._interp_fn = maybe_make_slomo_interp_fn(
+                    device=self.device)
+                timings["interp_load_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             stitched = stitch_texture(
                 self.video_full, result.indices, self.W, self.S, sf=cfg.SF,
                 subsample_rate=self.sub, interpolate=interpolate,
+                interp_fn=self._interp_fn if interpolate else None,
                 frames_bar=cfg.frames_bar, source_audio=self.audio,
                 audio_sample_rate=self.sample_rate, fps=self.fps)
             timings["stitch_s"] = time.perf_counter() - t0

@@ -20,15 +20,31 @@ non-zero, and no result line is printed):
    channel rule runs); kernel against chain at the shapes with
    min(K, N) < 128 is the channel rule's evidence;
 4. the full-width SlowFast-R50 (norm="affine", bf16) with the kernel
-   (fuse="all") against cuDNN 1x1 convs (fuse=False) on 8 clips at 224^2:
-   cosine similarity >= 0.999;
+   (fuse="all") against cuDNN 1x1 convs (fuse=False), and with the
+   space-to-depth stems against plain ones, on 8 clips at 224^2: cosine
+   similarity >= 0.999;
+4b. both stems of that encoder on the main path's batch of 150 clips:
+   the s2d forms (f = 4 and 8, each with both pools) against the plain
+   conv stem within 2^-6 max|conv * scale|, the two pools bit-identical;
+   ms of each form and the top device kernels, with cudnn.benchmark off
+   and on;
 5. the main path: TextureServer.from_frames on a synthetic 60 s, 30 fps,
    224^2 video (bench.py's moving gradients; L = 297 segments), both
    towers at batch 150 with seeded flax-style weights; the launch counter
    must read 64 per batch; the warm embed timed again with the channel
-   rule at its other value (128 or 64), the rule's other evidence; then
-   three requests, the third repeating the first (identical indices),
-   stitched with the crossfade;
+   rule at its other value (128 or 64), the rule's other evidence, with
+   the s2d stems at their other value and with cudnn.benchmark on; the
+   profile's stem share with s2d stems on and off; then three requests,
+   the third repeating the first (identical indices), stitched with the
+   crossfade;
+5b. SuperSloMo at jumps: a SuperSloMo.ckpt written from seeded weights,
+   found by the server, answers the 30 s request again: the same indices
+   and frame count as with the crossfade, uint8 frames, the bf16 net's
+   mid frames against the fp32 net's (mean |diff| <= 1 level, max <= 32);
+   ms per jump, stitch s against the crossfade's, interp_load_s;
+5c. the checkpoint round trip: the main path's parameters in avtex's tree
+   through save_checkpoint -> restore_checkpoint -> convert_params into a
+   new model, whose tables must be bit-identical; file size, restore s;
 6. pairwise_l2 against its plain version on the card: the RGB rows of a
    60 s, 30 fps, 224^2 synthetic video (N = 1800, F = 150528), the same
    rows normalized, and ragged shapes (N = 1, F inside one slab, F shorter
@@ -108,6 +124,13 @@ SQ_TOL = 1e-5
 # -- such an entry -- to a whole column of D3: P3 moves by about
 # dD3 / sigma3 ~ 1e-3 (phase 7 prints each version against an fp64 D1).
 P3_RTOL = 1e-2
+# s2d stem vs plain stem, both bf16: each conv output is an fp32 sum
+# rounded to bf16 once (one ulp apart at most, 2^-7 relative), then the
+# affine rounds twice; 2^-6 of the largest |conv * scale| covers that
+# where the bias cancels.
+STEM_TOL_REL = 2.0 ** -6
+# SuperSloMo in bf16 vs the same weights in fp32, uint8 mid frames.
+SLOMO_MEAN_TOL, SLOMO_MAX_TOL = 1.0, 32
 CLASSIC_SECONDS = 60  # phases 6-7 keep N = 1800 whatever --seconds says
 # fused_stage: slow res2 (SFBottleneck_0/2/4, stride 1) and res3
 # (_6/8/10/12, stride 2) of SlowFast-R50, one kernel launch per block.
@@ -500,6 +523,7 @@ def main() -> int:
     from avtex_torch.synth.embeddings import precompute_embeddings_from_video
     from avtex_torch.synth.pipeline import init_params_for_synthesis
 
+    torch.backends.cudnn.benchmark = False  # the library default, pinned
     t_start = time.perf_counter()
 
     # ---- 1. device report ------------------------------------------------ #
@@ -591,13 +615,26 @@ def main() -> int:
     plain = plain.cuda().eval()
     with torch.inference_mode():
         a, b = enc(*clips), plain(*clips)
+        enc.s2d_stem = not enc.s2d_stem
+        c = enc(*clips)
+        enc.s2d_stem = not enc.s2d_stem
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    cos_s2d = torch.nn.functional.cosine_similarity(a, c, dim=-1)
     log(f"[4] encoder fuse='all' vs fuse=False on 8 clips: cosine min "
-        f"{float(cos.min()):.6f}, feature shape {tuple(a.shape)}")
+        f"{float(cos.min()):.6f}, feature shape {tuple(a.shape)}; "
+        f"s2d_stem={enc.s2d_stem} vs {not enc.s2d_stem}: cosine min "
+        f"{float(cos_s2d.min()):.6f}")
     if a.shape != (8, 2304) or not torch.isfinite(a).all() \
             or float(cos.min()) < 0.999:
         raise AssertionError("encoder with the kernel disagrees with cuDNN")
-    del enc, plain, a, b, clips, video_dev
+    if not torch.isfinite(c).all() or float(cos_s2d.min()) < 0.999:
+        raise AssertionError("encoder with s2d stems disagrees with plain")
+    del plain, a, b, c, clips, video_dev
+    torch.cuda.empty_cache()
+
+    # ---- 4b. the stems: s2d against plain ------------------------------- #
+    stem_phase(enc, video, W, S, batch, res)
+    del enc
     torch.cuda.empty_cache()
 
     # ---- 5. the main path ------------------------------------------------ #
@@ -639,7 +676,10 @@ def main() -> int:
     log(f"    warm embed (both towers): {embed_s:.3f} s "
         f"(runs {', '.join(f'{t:.3f}' for t in embed_times)}), "
         f"{2 * L / embed_s:.1f} clips/s")
-    profile_embed(embed, embed_s)
+    encoders = [server.model.q_embedder.video_encoder,
+                server.model.t_embedder.video_encoder]
+    s2d = encoders[0].s2d_stem
+    profile_embed(embed, embed_s, label=f"s2d_stem={s2d}")
 
     # The channel rule's evidence: the same warm embed with the rule at its
     # other value, then once more as it is, each the best of its runs.
@@ -656,9 +696,45 @@ def main() -> int:
         alt_launches = launch_counts()["fused_conv1x1"] // 2
     finally:
         sfmod.KERNEL_MIN_CHANNELS = rule
+    # the s2d stems' evidence: the warm embed with them at their other
+    # value, then the benchmark-tuned cuDNN algorithms; each best of two
+    alt_s2d_times = []
+    for enc_ in encoders:
+        enc_.s2d_stem = not s2d
+    try:
+        reset_launch_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            embed()
+            alt_s2d_times.append(time.perf_counter() - t0)
+        alt_s2d_launches = launch_counts()["fused_conv1x1"]
+        profile_embed(embed, min(alt_s2d_times),
+                      label=f"s2d_stem={not s2d}", detail=False)
+    finally:
+        for enc_ in encoders:
+            enc_.s2d_stem = s2d
+    bench_times = []
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            embed()
+            bench_times.append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.benchmark = False
     t0 = time.perf_counter()
     embed()
     embed_times.append(time.perf_counter() - t0)
+    log(f"    s2d_stem={s2d} (as shipped): warm embed "
+        f"{min(embed_times):.3f} s; s2d_stem={not s2d}: "
+        f"{min(alt_s2d_times):.3f} s (runs "
+        f"{', '.join(f'{t:.3f}' for t in alt_s2d_times)}; kernel launches "
+        f"{alt_s2d_launches // 2} per embed); cudnn.benchmark=True: "
+        f"{min(bench_times[1:]):.3f} s (runs, the first tuning: "
+        f"{', '.join(f'{t:.3f}' for t in bench_times)})")
+    if alt_s2d_launches // 2 != LAUNCHES_PER_BATCH * n_batches:
+        raise AssertionError(f"with s2d_stem={not s2d} the kernel launched "
+                             f"{alt_s2d_launches // 2} times per embed")
     log(f"    channel rule {rule} (as shipped, {launches // n_batches // 2} "
         f"launches per tower forward): warm embed "
         f"{min(embed_times):.3f} s (runs "
@@ -686,6 +762,8 @@ def main() -> int:
     if not np.array_equal(outs[0]["result"].indices,
                           outs[2]["result"].indices):
         raise AssertionError("a repeated request gave other indices")
+    slomo_phase(server, requests[1], outs[1], fps)
+    checkpoint_phase(server, cfg, embed)
 
     def per_tower(key):
         return sum(r[key] * r["per_tower"] for r in main_rows)
@@ -1235,27 +1313,217 @@ def stage_phase(cfg, video: np.ndarray, state: dict, res: int,
             "stages": rows_out}
 
 
-def profile_embed(embed, wall_s: float) -> None:
+def stem_phase(enc, video: np.ndarray, W: int, S: int, batch: int,
+               res: int) -> None:
+    """Phase 4b: both stems of ``enc`` on the main path's first batch,
+    s2d forms against the plain stem, timed with cudnn.benchmark off and
+    on. Scale and bias are seeded and non-uniform, so a channel in the
+    wrong phase shows."""
+    import torch
+    from avtex_torch.data.preprocess import preprocess_clip
+    from avtex_torch.nn.slowfast import slowfast_pathways
+    from avtex_torch.ops import s2d_stem as st
+
+    t_phase = time.perf_counter()
+    video_dev = torch.from_numpy(video).cuda()
+    idx = (torch.arange(batch, device="cuda")[:, None] * S
+           + torch.arange(W, device="cuda")[None])
+    g = torch.Generator().manual_seed(7)
+    sd = enc.state_dict()
+    with torch.inference_mode():
+        slow, fast = (p.to(torch.bfloat16) for p in slowfast_pathways(
+            preprocess_clip(video_dev[idx], res, True)))
+        del video_dev
+        for name, x, w in (("slow", slow, sd["Conv_0.weight"]),
+                           ("fast", fast, sd["fast_stem_kernel"])):
+            o = w.shape[0]
+            sc = (1 + 0.25 * torch.randn(o, generator=g)).cuda()
+            bi = (0.25 * torch.randn(o, generator=g)).cuda()
+            conv = st.stem_conv_plain(x, w)
+            tol = STEM_TOL_REL * float((conv.float() * sc).abs().amax())
+            del conv
+            plain = st.stem_pooled_plain(x, w, sc, bi)
+            forms = {"plain": lambda x=x, w=w, sc=sc, bi=bi:
+                     st.stem_pooled_plain(x, w, sc, bi)}
+            for f in (4, 8):
+                if st.stem_factor(o, res, res, f) != f:
+                    log(f"[4b] {name} stem (O={o}): f={f} falls back to 4, "
+                        f"as avtex's")
+                    continue
+                outs = {pool: st.fast_stem_s2d_pooled(x, w, sc, bi, f=f,
+                                                      pool=pool)
+                        for pool in st.POOLS}
+                same = torch.equal(outs["shuffle"], outs["phase"])
+                err = float((outs["shuffle"].float() - plain.float()
+                             ).abs().max())
+                log(f"[4b] {name} stem x {tuple(x.shape)} -> "
+                    f"{tuple(plain.shape)}: s2d f={f} vs plain max err "
+                    f"{err:.4g} (tol {tol:.4g}); pools bit-identical: "
+                    f"{same}")
+                if not same or err > tol or plain.shape != outs[
+                        "shuffle"].shape:
+                    raise AssertionError(f"{name} stem s2d f={f} disagrees")
+                for pool in st.POOLS:
+                    forms[f"s2d f={f} {pool}"] = (
+                        lambda x=x, w=w, sc=sc, bi=bi, f=f, pool=pool:
+                        st.fast_stem_s2d_pooled(x, w, sc, bi, f=f,
+                                                pool=pool))
+                del outs
+            del plain
+            for bench in (False, True):
+                torch.backends.cudnn.benchmark = bench
+                try:
+                    for label, fn in forms.items():
+                        ms = time_ms(fn, reps=5)
+                        top = sorted(kernel_device_ms(fn).items(),
+                                     key=lambda kv: -kv[1])[:2]
+                        log(f"    {name} {label:18s} cudnn.benchmark="
+                            f"{int(bench)}: {ms:8.3f} ms; top kernels "
+                            + "; ".join(f"{v:.2f} ms {k[:70]}"
+                                        for k, v in top))
+                finally:
+                    torch.backends.cudnn.benchmark = False
+    log(f"    phase 4b: {time.perf_counter() - t_phase:.1f} s")
+
+
+def slomo_phase(server, request: dict, crossfaded: dict, fps: int) -> None:
+    """Phase 5b: the ``request`` again with SuperSloMo at its jumps, from
+    a checkpoint written from seeded weights that the server finds."""
+    import os
+    import tempfile
+    import torch
+    from avtex_torch.checkpoints import (maybe_make_slomo_interp_fn,
+                                         save_slomo_checkpoint)
+    from avtex_torch.synth.interp import init_slomo
+    from avtex_torch.synth.stitcher import walk_frame_ids
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_slomo_checkpoint(
+            init_slomo(seed=0, dtype=torch.float32, device="cpu"),
+            os.path.join(tmp, "SuperSloMo.ckpt"))
+        os.environ["AVTEX_SLOMO_CKPT"] = path
+        try:
+            out = server.synthesize(**request)
+        finally:
+            del os.environ["AVTEX_SLOMO_CKPT"]
+        fp32 = maybe_make_slomo_interp_fn(path, device="cuda",
+                                          dtype=torch.float32)
+    bf16 = server._interp_fn
+    t = out["timings"]
+    frames, intp = out["frames"], out["frames_intp"]
+    ref = crossfaded["frames_intp"]
+    same_idx = np.array_equal(out["result"].indices,
+                              crossfaded["result"].indices)
+    log(f"[5b] SuperSloMo request {request}: interp_load_s "
+        f"{t.get('interp_load_s', float('nan')):.3f} s, stitch "
+        f"{t['stitch_s']:.3f} s (crossfade {crossfaded['timings']['stitch_s']:.3f}"
+        f" s), {out['jump_count']} jumps, {len(intp)} interpolated frames "
+        f"(crossfade {len(ref)}), same indices {same_idx}")
+    if (bf16 is None or "interp_load_s" not in t or not same_idx
+            or intp.dtype != np.uint8 or len(intp) != len(ref)
+            or frames.shape != crossfaded["frames"].shape):
+        raise AssertionError("the SuperSloMo request went wrong")
+    if np.array_equal(intp, ref):
+        raise AssertionError("SuperSloMo frames equal the crossfade's")
+
+    # the jumps' frame pairs, as the stitcher passes them
+    ids, jump_at = walk_frame_ids(out["result"].indices, server.W, server.S)
+    video = server.video_full
+    pairs = [(video[ids[k - 1]], video[ids[k]]) for k in jump_at if k > 0]
+    n_mid = server.cfg.SF - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, b in pairs:
+        bf16(a, b, n_mid)
+    jump_ms = (time.perf_counter() - t0) * 1e3 / max(len(pairs), 1)
+    jump_dev_ms = sum(kernel_device_ms(
+        lambda: bf16(*pairs[0], n_mid)).values())
+    diffs = [np.abs(bf16(a, b, n_mid).astype(np.int32)
+                    - fp32(a, b, n_mid).astype(np.int32))
+             for a, b in pairs[:8]]
+    mean_d = float(np.mean([d.mean() for d in diffs]))
+    max_d = int(max(d.max() for d in diffs))
+    log(f"    {len(pairs)} jumps: {jump_ms:.2f} ms per jump ({n_mid} mid "
+        f"frames at {video.shape[1]}x{video.shape[2]}, host to host; "
+        f"{jump_dev_ms:.2f} ms of it device time, copies included); "
+        f"bf16 vs fp32 net on {len(diffs)} jumps: mean |diff| "
+        f"{mean_d:.3f}, max {max_d} levels (tol {SLOMO_MEAN_TOL:g}, "
+        f"{SLOMO_MAX_TOL}); phase 5b {time.perf_counter() - t_phase:.1f} s")
+    if mean_d > SLOMO_MEAN_TOL or max_d > SLOMO_MAX_TOL:
+        raise AssertionError("SuperSloMo bf16 disagrees with fp32")
+
+
+def checkpoint_phase(server, cfg, embed) -> None:
+    """Phase 5c: the main path's parameters through avtex's checkpoint
+    file and back into a new model, whose tables must be bit-identical."""
+    import os
+    import tempfile
+    import torch
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.convert import convert_params, export_params
+    from avtex_torch.synth.embeddings import precompute_embeddings_from_video
+    from avtex_torch.train import restore_checkpoint, save_checkpoint
+
+    ref_q, ref_t = embed()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, "smoke", export_params(
+            server.model.state_dict()), epoch=0, arch="slowfast",
+            best_loss=0.0, is_best=True)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        payload = restore_checkpoint(path)
+        restore_s = time.perf_counter() - t0
+    model = ContrastiveTextures(arch="slowfast", temp=cfg.temp,
+                                norm=cfg.norm)
+    model.load_state_dict(convert_params(payload["state"], model))
+    model = model.cuda().eval()
+    q, t = precompute_embeddings_from_video(
+        model, server.video, server.W, server.S, server.L,
+        img_size=cfg.img_size, batch_size=cfg.mini_batchsize)
+    same = torch.equal(q, ref_q) and torch.equal(t, ref_t)
+    log(f"[5c] checkpoint round trip: {size / 2**20:.1f} MiB, restore "
+        f"{restore_s:.3f} s; tables bit-identical: {same}")
+    if not same:
+        raise AssertionError("restored model's tables differ")
+
+
+def profile_embed(embed, wall_s: float, label: str = "",
+                  detail: bool = True) -> None:
     """Device time of one warm embed by kernel and by op (torch.profiler);
-    the busy share is kernel time over the unprofiled wall time."""
+    the busy share is kernel time over the unprofiled wall time, the stem
+    share the device time inside the encoder's stems range over all
+    kernel time. ``detail=False`` prints the totals only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from avtex_torch.nn.slowfast import STEMS_RANGE
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         embed()
 
     cuda = torch.autograd.DeviceType.CUDA
+    # (a named range may also show as a device-side annotation: not a
+    # kernel)
     kernels = [(dev_ms(e), e.count, e.key) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda and dev_ms(e) > 0]
+               if getattr(e, "device_type", None) == cuda and dev_ms(e) > 0
+               and e.key != STEMS_RANGE]
     total = sum(k[0] for k in kernels)
     if not total:
         log("    profiler: no device time recorded")
         return
     fused = sum(k[0] for k in kernels if "fused_conv1x1" in k[2])
-    log(f"    profiled warm embed: kernels {total:.1f} ms on the device = "
-        f"{100 * total / (wall_s * 1e3):.1f}% of the unprofiled wall "
-        f"{wall_s * 1e3:.1f} ms; fused_conv1x1 {fused:.1f} ms "
-        f"({100 * fused / total:.1f}%)")
+    # the host-side range's device time: its kernels' time
+    stems = sum(getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)) / 1e3
+                for e in prof.key_averages() if e.key == STEMS_RANGE
+                and getattr(e, "device_type", None) != cuda)
+    log(f"    profiled warm embed ({label}): kernels {total:.1f} ms on the "
+        f"device = {100 * total / (wall_s * 1e3):.1f}% of the unprofiled "
+        f"wall {wall_s * 1e3:.1f} ms; fused_conv1x1 {fused:.1f} ms "
+        f"({100 * fused / total:.1f}%); stems {stems:.1f} ms "
+        f"({100 * stems / total:.1f}%)")
+    if not detail:
+        return
     for ms, count, key in sorted(kernels, reverse=True)[:8]:
         log(f"      kernel {ms:9.2f} ms {100 * ms / total:5.1f}% "
             f"x{count:<4} {key[:80]}")

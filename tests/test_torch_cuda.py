@@ -410,3 +410,101 @@ def test_stage_launcher_refuses_a_plan_it_cannot_run(cuda, shape, bad):
     with pytest.raises(RuntimeError):
         stage_fused.launch_block(x, packed, s, bad)
     assert stage_fused.launches == before
+
+
+# ---- modules on stock torch ops: s2d stems, SuperSloMo, checkpoints ----- #
+# s2d stem vs plain stem in bf16: each conv output rounds an fp32 sum to
+# bf16 once (one ulp apart at most) and the affine rounds twice, so both
+# agree within 2^-6 of the largest |conv * scale| (chip_smoke.py phase 4b).
+
+@pytest.mark.parametrize("kt,o,f", [(1, 64, 4), (5, 8, 4), (5, 8, 8)])
+def test_s2d_stem_bf16_matches_plain_stem(cuda, kt, o, f):
+    from avtex_torch.ops import s2d_stem as st
+    g = torch.Generator(device="cpu").manual_seed(kt + o + f)
+    x = torch.randn(4, 8, 64, 64, 3, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(o, 3, kt, 7, 7, generator=g) / 8).to(cuda,
+                                                           torch.bfloat16)
+    sc = (1 + 0.25 * torch.randn(o, generator=g)).to(cuda)
+    bi = (0.25 * torch.randn(o, generator=g)).to(cuda)
+    plain = st.stem_pooled_plain(x, w, sc, bi)
+    tol = 2.0 ** -6 * float(
+        (st.stem_conv_plain(x, w).float() * sc).abs().amax())
+    outs = [st.fast_stem_s2d_pooled(x, w, sc, bi, f=f, pool=p)
+            for p in st.POOLS]
+    assert torch.equal(outs[0], outs[1])
+    assert outs[0].shape == plain.shape
+    assert float((outs[0].float() - plain.float()).abs().max()) <= tol
+    conv = st.fast_stem_s2d(x, w)
+    assert float((conv.float() - st.stem_conv_plain(x, w).float()
+                  ).abs().max()) <= tol
+
+
+def test_encoder_with_s2d_stems_matches_plain_stems(cuda):
+    from avtex_torch.config import Config
+    from avtex_torch.nn.slowfast import SlowFastR50
+    from avtex_torch.synth.pipeline import init_params_for_synthesis
+    enc = SlowFastR50(width=16, layers=(1, 1, 1, 1), norm="affine")
+    enc.load_state_dict(init_params_for_synthesis(
+        Config(enc_arch="slowfast", norm="affine"), enc))
+    enc = enc.to(cuda).eval()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    slow = torch.randn(4, 8, 64, 64, 3, generator=g).to(cuda)
+    fast = torch.randn(4, 32, 64, 64, 3, generator=g).to(cuda)
+    with torch.no_grad():
+        a = enc(slow, fast)
+        enc.s2d_stem = False
+        b = enc(slow, fast)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    assert torch.isfinite(a).all() and float(cos.min()) >= 0.999
+
+
+def test_superslomo_bf16_matches_fp32(cuda, tmp_path):
+    """The loader's bf16 net against the same weights in fp32, on uint8
+    mid frames: mean |diff| <= 1 level, max <= 32 (chip_smoke.py 5b)."""
+    import numpy as np
+    from avtex_torch.checkpoints import (maybe_make_slomo_interp_fn,
+                                         save_slomo_checkpoint)
+    from avtex_torch.synth.interp import init_slomo
+    path = save_slomo_checkpoint(
+        init_slomo(seed=0, dtype=torch.float32, device="cpu"),
+        str(tmp_path / "SuperSloMo.ckpt"))
+    bf16 = maybe_make_slomo_interp_fn(path, device=cuda)
+    fp32 = maybe_make_slomo_interp_fn(path, device=cuda,
+                                      dtype=torch.float32)
+    g = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:100, 0:136]
+    f0 = np.clip(127 + 90 * np.sin(xx / 9)[..., None]
+                 + 20 * g.standard_normal((100, 136, 3)), 0, 255)
+    f1 = np.roll(f0, 3, axis=1)
+    a = bf16(f0.astype(np.uint8), f1.astype(np.uint8), 4).astype(int)
+    b = fp32(f0.astype(np.uint8), f1.astype(np.uint8), 4).astype(int)
+    assert a.shape == b.shape == (4, 100, 136, 3)
+    d = np.abs(a - b)
+    assert d.mean() <= 1.0 and d.max() <= 32
+
+
+def test_checkpoint_round_trip_of_a_cuda_model(cuda, tmp_path):
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.convert import convert_params, export_params
+    from avtex_torch.synth.pipeline import init_params_for_synthesis
+    from avtex_torch.config import Config
+    from avtex_torch.train import restore_checkpoint, save_checkpoint
+    kw = dict(arch="slowfast", norm="affine", width=16, layers=(1, 1, 1, 1))
+    model = ContrastiveTextures(**kw)
+    model.load_state_dict(init_params_for_synthesis(
+        Config(enc_arch="slowfast", norm="affine"), model))
+    model = model.to(cuda).eval()
+    path = save_checkpoint(str(tmp_path), "run",
+                           export_params(model.state_dict()), 1, "slowfast",
+                           0.5, True)
+    again = ContrastiveTextures(**kw)
+    again.load_state_dict(convert_params(restore_checkpoint(path)["state"],
+                                         again))
+    again = again.to(cuda).eval()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    clips = (torch.randn(2, 8, 64, 64, 3, generator=g).to(cuda),
+             torch.randn(2, 32, 64, 64, 3, generator=g).to(cuda))
+    with torch.no_grad():
+        for tower in ("query", "target"):
+            assert torch.equal(model.embed(clips, tower=tower),
+                               again.embed(clips, tower=tower))

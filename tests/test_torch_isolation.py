@@ -1,5 +1,5 @@
-"""avtex_torch stands alone: it imports neither jax, flax nor avtex, and
-its entry points do not fall back to the CPU on their own."""
+"""avtex_torch stands alone: it imports neither jax, flax, msgpack nor
+avtex, and its entry points do not fall back to the CPU on their own."""
 
 import os
 import pathlib
@@ -22,7 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(avtex_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "avtex"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                    "avtex"))
 print(len(names), bad)
 assert not bad, bad
 """

@@ -3,9 +3,10 @@ lookups and the places that would load a found file, the files of
 ``synthesize(out_dir=...)`` and what a logger receives.
 
 - ``avtex_torch.checkpoints.find_*_checkpoint`` find the same file as
-  avtex's ``avtex/utils/convert.py`` lookups; where avtex would load it,
-  the port raises ``NotImplementedError`` naming the file and the
-  ROADMAP.md Queue 1 item, and with no file it runs as before;
+  avtex's ``avtex/utils/convert.py`` lookups; where avtex would load a
+  pretrained encoder, the port raises ``NotImplementedError`` naming the
+  file and the ROADMAP.md Queue 1 item; a SuperSloMo file is loaded
+  where avtex loads it; with no file it runs as before;
 - on a tiny clip, with the same carried-over weights (the same-walk setup
   of tests/test_torch_synth.py), both pipelines write the same file names
   and report the same stats, and a recording logger receives the same
@@ -109,23 +110,65 @@ def small_server():
                                      **SMALL)
 
 
+@pytest.fixture(scope="module")
+def slomo_file(tmp_path_factory):
+    """A SuperSloMo.ckpt in the reference's layout from seeded weights,
+    and the interp_fn of those weights as the loader makes them (bf16)."""
+    from avtex_torch.synth.interp import init_slomo, make_interp_fn
+    model = init_slomo(seed=2, dtype=torch.float32, device="cpu")
+    path = str(tmp_path_factory.mktemp("slomo") / "SuperSloMo.ckpt")
+    checkpoints.save_slomo_checkpoint(model, path)
+    return path, make_interp_fn(model.to(torch.bfloat16))
+
+
 def test_slomo_checkpoint_raises_where_the_server_interpolates(
-        monkeypatch, no_checkpoints, small_server):
+        monkeypatch, no_checkpoints, small_server, slomo_file):
+    """A found SuperSloMo file is loaded where the server interpolates, as
+    avtex does: an unreadable one raises, a real one makes the frames at
+    jumps (once per server), and without interpolation nothing loads."""
+    import pickle
     before = small_server.synthesize(seconds=2, seed=1)
     assert before["frames_intp"] is not None
-    path = _plant(monkeypatch, no_checkpoints, "AVTEX_SLOMO_CKPT",
-                  "SuperSloMo.ckpt")
-    with pytest.raises(NotImplementedError, match="'SuperSloMo'") as e:
-        small_server.synthesize(seconds=2, seed=1)
-    assert path in str(e.value)
-    # no interpolation, no stitching: nothing avtex would load
-    plain = small_server.synthesize(seconds=2, seed=1, interpolate=False)
-    np.testing.assert_array_equal(plain["frames"], before["frames"])
-    small_server.synthesize(seconds=2, seed=1, stitch=False)
+    assert before["jump_count"] > 0
+    _plant(monkeypatch, no_checkpoints, "AVTEX_SLOMO_CKPT",
+           "SuperSloMo.ckpt")
+    try:
+        with pytest.raises(pickle.UnpicklingError):
+            small_server.synthesize(seconds=2, seed=1)
+        # no interpolation, no stitching: nothing avtex would load
+        plain = small_server.synthesize(seconds=2, seed=1,
+                                        interpolate=False)
+        np.testing.assert_array_equal(plain["frames"], before["frames"])
+        small_server.synthesize(seconds=2, seed=1, stitch=False)
+
+        path, interp = slomo_file
+        monkeypatch.setenv("AVTEX_SLOMO_CKPT", path)
+        out = small_server.synthesize(seconds=2, seed=1)
+        assert "interp_load_s" in out["timings"]
+        np.testing.assert_array_equal(out["result"].indices,
+                                      before["result"].indices)
+        np.testing.assert_array_equal(out["frames"], before["frames"])
+        assert out["frames_intp"].shape == before["frames_intp"].shape
+        assert not np.array_equal(out["frames_intp"], before["frames_intp"])
+        from avtex_torch.synth import stitch_texture
+        want = stitch_texture(
+            small_server.video_full, out["result"].indices, small_server.W,
+            small_server.S, sf=small_server.cfg.SF, interp_fn=interp)
+        np.testing.assert_array_equal(out["frames_intp"],
+                                      want["frames_intp"])
+        again = small_server.synthesize(seconds=2, seed=1)
+        assert "interp_load_s" not in again["timings"]  # loaded once
+    finally:
+        small_server._interp_fn = None
 
 
 def test_slomo_checkpoint_raises_for_the_classic_interp_track(
-        monkeypatch, no_checkpoints):
+        monkeypatch, no_checkpoints, slomo_file):
+    """Classic mode 1 loads a found SuperSloMo file once per run for its
+    interpolated track: an unreadable one raises, a real one is used; a
+    given interp_fn, or a mode without that track, loads nothing."""
+    import dataclasses
+    import pickle
     from avtex_torch.classic import run_classic_frames
     from avtex_torch.synth.stitcher import crossfade
     frames = (np.random.default_rng(0).random((24, 32, 32, 3)) * 255
@@ -133,21 +176,28 @@ def test_slomo_checkpoint_raises_for_the_classic_interp_track(
     cfg = ClassicConfig(model_type=1, sigmas=(4.5,), filter_size=4,
                         new_video_length=1)
     before = run_classic_frames(cfg, frames, 10.0, device="cpu")
-    path = _plant(monkeypatch, no_checkpoints, "AVTEX_SLOMO_CKPT",
-                  "SuperSloMo.ckpt")
-    with pytest.raises(NotImplementedError, match="'SuperSloMo'") as e:
+    _plant(monkeypatch, no_checkpoints, "AVTEX_SLOMO_CKPT",
+           "SuperSloMo.ckpt")
+    with pytest.raises(pickle.UnpicklingError):
         run_classic_frames(cfg, frames, 10.0, device="cpu")
-    assert path in str(e.value)
-    # a given interp_fn, or a mode without the interpolated track, loads
-    # nothing
     again = run_classic_frames(cfg, frames, 10.0, interp_fn=crossfade,
                                device="cpu")
     (b,), (a,) = (before["sigma_results"].values(),
                   again["sigma_results"].values())
     np.testing.assert_array_equal(a["frames_intp"], b["frames_intp"])
-    import dataclasses
     run_classic_frames(dataclasses.replace(cfg, model_type=3, stride=2),
                        frames, 10.0, device="cpu")
+
+    path, interp = slomo_file
+    monkeypatch.setenv("AVTEX_SLOMO_CKPT", path)
+    [s] = run_classic_frames(cfg, frames, 10.0,
+                             device="cpu")["sigma_results"].values()
+    [w] = run_classic_frames(cfg, frames, 10.0, interp_fn=interp,
+                             device="cpu")["sigma_results"].values()
+    assert b["jump_count"] > 0
+    np.testing.assert_array_equal(s["walk"], b["walk"])
+    np.testing.assert_array_equal(s["frames_intp"], w["frames_intp"])
+    assert not np.array_equal(s["frames_intp"], b["frames_intp"])
 
 
 def test_cam_videos_are_refused_before_any_work():
