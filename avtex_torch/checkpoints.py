@@ -9,8 +9,12 @@ returns the first that exists (None if none does).
 ``SuperSloMo.ckpt`` (a torch file holding ``state_dictFC`` and
 ``state_dictAT``) loads through ``maybe_make_slomo_interp_fn``: its 4-D
 conv weights pair with the port's convs in call order, every shape
-checked, as avtex's ``convert_slomo`` does. The encoder and VGGish files
-are not loadable yet; where avtex would load one, the port raises
+checked, as avtex's ``convert_slomo`` does. ``pytorch_vggish.pth`` loads
+through ``maybe_load_vggish`` / ``maybe_load_vggish_into_model``: its
+first six 4-D tensors, in order, are VGGish's ``Conv_0..5`` (fc and
+embedding tensors are dropped), as avtex's ``convert_vggish``; without a
+file they warn loudly and leave the weights as they are. The encoder
+files are not loadable yet; where avtex would load one, the port raises
 ``checkpoint_not_ported`` instead of silently running on other weights.
 """
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -142,6 +147,80 @@ def convert_slomo_params(tree: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"unexpected SuperSloMo leaf {prefix}{k}")
     walk(tree, "")
     return out
+
+
+def convert_vggish_state(state: Mapping[str, np.ndarray],
+                         vggish_state: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """A reference ``pytorch_vggish.pth`` state (``load_torch_state``) ->
+    ``vggish_state`` (a ``VGGish`` state_dict) with ``Conv_0..5`` replaced:
+    the checkpoint's first six 4-D ``.weight`` tensors, in its order,
+    each with its ``.bias`` when it has one; shapes checked."""
+    pairs = [(k[:-len(".weight")], np.asarray(v)) for k, v in state.items()
+             if k.endswith(".weight") and np.ndim(v) == 4][:6]
+    slots = sorted({k.split(".")[0] for k in vggish_state
+                    if k.startswith("Conv_")}, key=lambda m: int(m[5:]))
+    if len(slots) != len(pairs):
+        raise ValueError(f"conv count mismatch: VGGish has {len(slots)}, "
+                         f"the checkpoint {len(pairs)}")
+    out = dict(vggish_state)
+    for slot, (base, w) in zip(slots, pairs):
+        have = tuple(vggish_state[f"{slot}.weight"].shape)
+        if have != w.shape:
+            raise ValueError(f"shape mismatch at {slot} <- {base}: {have} "
+                             f"vs {w.shape}")
+        out[f"{slot}.weight"] = torch.from_numpy(np.array(w, np.float32))
+        if base + ".bias" in state:
+            out[f"{slot}.bias"] = torch.from_numpy(
+                np.array(state[base + ".bias"], np.float32))
+    return out
+
+
+def maybe_load_vggish(vggish_state: Mapping[str, torch.Tensor],
+                      path: Optional[str] = None, *, context: str = ""):
+    """Load the checkpoint that ``find_vggish_checkpoint(path)`` finds into
+    a copy of ``vggish_state``; without one, warn loudly (random VGGish
+    features score audio meaninglessly) and return it unchanged.
+    Returns (state, loaded)."""
+    found = find_vggish_checkpoint(path)
+    if found is None:
+        print(f"[avtex_torch] WARNING: no pytorch_vggish.pth found "
+              f"({context}); VGGish runs with RANDOM weights — audio "
+              "features are meaningless. Set $AVTEX_VGGISH_CKPT or place "
+              "the file at pretrained/pytorch_vggish.pth.", file=sys.stderr)
+        return dict(vggish_state), False
+    out = convert_vggish_state(load_torch_state(found), vggish_state)
+    print(f"[avtex_torch] loaded pretrained VGGish weights from {found}")
+    return out, True
+
+
+def maybe_load_vggish_into_model(model_state: Mapping[str, torch.Tensor],
+                                 path: Optional[str] = None, *,
+                                 context: str = ""):
+    """Graft a found VGGish checkpoint into the shared ``audio_encoder.*``
+    entries of a ContrastiveTextures state_dict (model_type=2). Returns
+    (state, loaded); unchanged, after the warning, without a file or
+    without an audio encoder."""
+    prefix = "audio_encoder."
+    sub = {k[len(prefix):]: v for k, v in model_state.items()
+           if k.startswith(prefix)}
+    if not sub:
+        return dict(model_state), False
+    sub, loaded = maybe_load_vggish(sub, path, context=context)
+    out = dict(model_state)
+    out.update({prefix + k: v for k, v in sub.items()})
+    return out, loaded
+
+
+def vggish_reference_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A ``VGGish``'s convs under the reference's ``pytorch_vggish.pth``
+    names (``features.{0,3,6,8,11,13}.weight`` / ``.bias``, float32), the
+    part of that file the loader reads; add the ``embeddings.*`` head and
+    ``torch.save`` it to make a test file."""
+    idx = (0, 3, 6, 8, 11, 13)
+    return {f"features.{idx[int(k[5])]}.{k.split('.')[1]}":
+            v.detach().float().cpu().clone()
+            for k, v in model.state_dict().items()}
 
 
 _REFERENCE_UNET = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3",

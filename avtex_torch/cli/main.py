@@ -1,20 +1,27 @@
 """Contrastive video-textures CLI (the port of avtex/cli/main.py), with the
 same flags plus ``-device``.
 
-Ported: the synthesis branch, ``-m 1 -e``: per video, derive W/S from the
-fps, restore the checkpoint at ``-resume`` or the path derived from the
-flags (``Config.default_ckpt_path``; avtex's flax msgpack file, read by
+Ported: the synthesis branch, ``-e``, for ``-m 1`` and ``-m 2`` (which
+needs ``<adata>/<video>.wav``): per video, derive W/S from the fps,
+restore the checkpoint at ``-resume`` or the path derived from the flags
+(``Config.default_ckpt_path``; avtex's flax msgpack file, read by
 ``avtex_torch.train.restore_checkpoint``), synthesize and write the
-texture, the bar plots and the report under ``results_<video>``.
-Training (no ``-e``), ``-m 2``, ``-da`` and ``--mesh`` raise
-``NotImplementedError`` naming their ROADMAP.md Queue 1 item.
+texture, the bar plots and the report under ``results_<video>``. With
+``-da`` the i-th driving wav (``<dadata>/<name>.wav``) pairs with the
+i-th video, as in avtex, scored by ``-daf VGG`` or ``Mel`` and blended
+with weight ``1 - alpha``; results go under
+``results_<video>_target_<video>_<audio>``. Training (no ``-e``),
+``--mesh`` and ``-daf Contrastive`` raise ``NotImplementedError`` naming
+their ROADMAP.md Queue 1 item.
 
 One deviation from avtex: ``-rf/-results_folder`` defaults to None, and
-any folder given is the parent of ``results_<video>`` (avtex ignores an
+any folder given is the parent of the per-video folder (avtex ignores an
 explicit ``-rf results``, its default's value).
 
 Usage:
   python -m avtex_torch.cli.main -m 1 -e -vdata data/videos -vl clip
+  python -m avtex_torch.cli.main -m 2 -e -vdata data/videos \
+      -adata data/audio -vl clip -da song -dadata audio/target -daf VGG
 
 Decoding needs OpenCV; on a host without it drive
 ``avtex_torch.synth.synthesize_frames`` from decoded frames.
@@ -140,21 +147,35 @@ def discover_video_list(vdata: str) -> List[str]:
     return out
 
 
-def per_video_config(cfg, video_name: str):
-    """``cfg`` for one video: results under ``results_<video>``, inside
-    ``cfg.results_folder`` when one was given. (avtex also pairs driving
-    audio with videos by index here; driving audio is not ported.)"""
+def per_video_config(cfg, video_name: str, itr: int = 0):
+    """``cfg`` for video #``itr``, as avtex specialises it: the ``-da``
+    and ``-daf_resume`` entries pair with the videos by index (not as a
+    cross product); results go under ``results_<video>``, with
+    ``_target_<video>_<audio>`` appended when synthesizing with driving
+    audio, inside ``cfg.results_folder`` when one was given."""
+    da, daf = cfg.driving_audio, cfg.daf_resume
+    for flag, entries in (("-da", da), ("-daf_resume", daf)):
+        if entries and itr >= len(entries):
+            raise ValueError(
+                f"{flag} lists {len(entries)} entries for {itr + 1}+ "
+                f"videos; they pair with the videos by index: pass one "
+                f"per video.")
+    da = [da[itr]] if da else da
+    daf = [daf[itr]] if daf else daf
     rf = f"results_{video_name}"
+    if (cfg.evaluate or cfg.visualize_evaluate) and da:
+        rf += f"_target_{video_name}_{os.path.split(da[0])[-1].split('.')[0]}"
     if cfg.results_folder:
         rf = os.path.join(cfg.results_folder, rf)
-    return dataclasses.replace(cfg, results_folder=rf)
+    return dataclasses.replace(cfg, driving_audio=da, daf_resume=daf,
+                               results_folder=rf)
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     from avtex_torch.synth.pipeline import _not_yet
-    if args.model_type == 2 or args.driving_audio:
-        raise _not_yet("-m 2 / driving audio (-da)",
-                       "Audio-conditioned synthesis, -m 2")
+    if args.driving_audio and args.da_feats == "Contrastive":
+        raise _not_yet("-daf Contrastive (the VideoForAudio retrieval "
+                       "head)", "Contrastive extras")
     if not args.evaluate:
         raise _not_yet("training (the CLI without -e)", "Training")
     if args.mesh:
@@ -162,7 +183,8 @@ def _refuse_unported(args: argparse.Namespace) -> None:
 
 
 def run_one_video(cfg, video_name: str, device=None) -> dict:
-    """Synthesize one video (avtex's -e branch of ``run_one_video``)."""
+    """Synthesize one video, once per driving wav (avtex's -e branch of
+    ``run_one_video``)."""
     from avtex_torch.contrastive.model import ContrastiveTextures
     from avtex_torch.convert import convert_params
     from avtex_torch.media import video_fps
@@ -173,6 +195,9 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
     video_path = os.path.join(cfg.vdata or ".", f"{video_name}.mp4")
     audio_path = (os.path.join(cfg.adata, f"{video_name}.wav")
                   if cfg.adata else None)
+    if cfg.model_type == 2 and (audio_path is None
+                                or not os.path.exists(audio_path)):
+        raise FileNotFoundError(f"model_type=2 requires {audio_path}")
     cfg = cfg.derive_geometry(video_fps(video_path))
 
     resume = cfg.resume or cfg.default_ckpt_path(video_name)
@@ -198,14 +223,20 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
         print(f"[avtex_torch] no checkpoint at {resume}; random-init params",
               file=sys.stderr)
 
+    driving_paths = [None]
+    if cfg.driving_audio:
+        driving_paths = [os.path.join(cfg.dadata, f"{d}.wav")
+                         for d in cfg.driving_audio]
     logger = Logger(cfg.logdir, cfg.eval_logname(video_name))
-    out = synthesize(cfg, video_path, params, audio_path=audio_path,
-                     out_dir=cfg.results_folder, logger=logger,
-                     device=device)
-    r = out["result"]
-    print(f"[avtex_torch] {video_name}: {len(r.indices)} steps, "
-          f"{int(r.jumps.sum())} jumps, timings {out['timings']}, "
-          f"outputs {list(out['paths'].values())}")
+    for d_path in driving_paths:
+        out = synthesize(cfg, video_path, params, audio_path=audio_path,
+                         driving_audio_path=d_path,
+                         out_dir=cfg.results_folder, logger=logger,
+                         device=device)
+        r = out["result"]
+        print(f"[avtex_torch] {video_name}: {len(r.indices)} steps, "
+              f"{int(r.jumps.sum())} jumps, timings {out['timings']}, "
+              f"outputs {list(out['paths'].values())}")
     return out
 
 
@@ -221,8 +252,9 @@ def main(argv=None) -> List[dict]:
             raise SystemExit(
                 "need -vl video names (or -vdata pointing at a directory "
                 "of videos to discover them from)")
-    return [run_one_video(per_video_config(cfg, name), name, args.device)
-            for name in cfg.video_list]
+    return [run_one_video(per_video_config(cfg, name, itr), name,
+                          args.device)
+            for itr, name in enumerate(cfg.video_list)]
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ jax nor flax. The port names its modules after the flax tree, so the
 mapping is a renaming plus layout changes:
 
 - ``Conv_k/kernel`` and ``fast_stem_kernel``: DHWIO -> OIDHW;
+- 4-D ``Conv_k/kernel`` (VGGish, ``audio_encoder`` of model_type=2):
+  HWIO -> OIHW, ``Conv_k/bias`` unchanged;
 - ``Affine_k/{scale,bias}``: unchanged;
 - ``GroupNorm_k/{scale,bias}`` -> ``GroupNorm_k.{weight,bias}``.
 
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 
 _OIDHW = (4, 3, 0, 1, 2)
+_OIHW = (3, 2, 0, 1)
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -43,8 +46,12 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 def _torch_key(path: Tuple[str, ...], value: np.ndarray
                ) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
-    if leaf == "fast_stem_kernel" or (leaf == "kernel" and mods
-                                      and mods[-1].startswith("Conv_")):
+    conv = bool(mods) and mods[-1].startswith("Conv_")
+    if leaf == "kernel" and conv and value.ndim == 4:  # VGGish
+        return ".".join(mods + ["weight"]), value.transpose(_OIHW)
+    if leaf == "bias" and conv:
+        return ".".join(mods + [leaf]), value
+    if leaf == "fast_stem_kernel" or (leaf == "kernel" and conv):
         if value.ndim != 5:
             raise ValueError(f"{'/'.join(path)}: expected a 5-D DHWIO conv "
                              f"kernel, got shape {value.shape}")
@@ -88,13 +95,14 @@ def convert_params(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 _DHWIO = (2, 3, 4, 1, 0)
+_HWIO = (2, 3, 1, 0)
 
 
 def export_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The port's ``state_dict`` -> avtex's parameter tree
     ``{"params": {...}}`` of float32 numpy arrays (conv kernels OIDHW ->
-    DHWIO, ``GroupNorm_k.weight`` -> ``GroupNorm_k/scale``); the inverse
-    of ``convert_params``."""
+    DHWIO and OIHW -> HWIO, ``GroupNorm_k.weight`` -> ``GroupNorm_k/scale``);
+    the inverse of ``convert_params``."""
     tree: Dict = {}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
@@ -102,6 +110,8 @@ def export_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         if leaf == "fast_stem_kernel" or (leaf == "weight" and arr.ndim == 5):
             arr = arr.transpose(_DHWIO)
             leaf = leaf if leaf == "fast_stem_kernel" else "kernel"
+        elif leaf == "weight" and arr.ndim == 4:
+            arr, leaf = arr.transpose(_HWIO), "kernel"
         elif mods and mods[-1].startswith("GroupNorm_") and leaf == "weight":
             leaf = "scale"
         node = tree

@@ -9,11 +9,21 @@ entropy and survivor bar plots and the HTML report, as avtex does. With a
 ``logger`` it logs avtex's scalars (and with ``cfg.visualize_evaluate``,
 ``-ve``, the jump-frame strips and the probability-row figures).
 
-Ported: ``model_type=1`` without driving audio, with SuperSloMo at jumps
+Ported: ``model_type=1`` and ``model_type=2`` (video + the source's
+log-mel examples through a shared VGGish; a found ``pytorch_vggish.pth``
+is grafted in at random init), driving audio (``driving_audio_path``:
+``-daf VGG`` or ``Mel`` rows blended with weight ``1 - cfg.alpha``, the
+audio-matched seed segment, the length clipped to the driving clip, the
+driving waveform as the output track), SuperSloMo at jumps
 (``interp_fn``, or one loaded from a found ``SuperSloMo.ckpt``, else the
-crossfade). Not yet: driving audio, the device scan walk, multi-GPU and
-CAM videos (``cfg.vcam``). Where avtex would load a pretrained encoder
-file that it finds, the port raises ``NotImplementedError``.
+crossfade). Not yet: ``-daf Contrastive``, the device scan walk,
+multi-GPU and CAM videos (``cfg.vcam``). Where avtex would load a
+pretrained encoder file that it finds, the port raises
+``NotImplementedError``.
+
+Rates: source and driving examples are computed at ``sr * sub``, not
+``sr`` (the reference's quirk, kept by avtex), the source waveform
+clipped to the encoded frames' span.
 """
 
 from __future__ import annotations
@@ -28,9 +38,16 @@ import torch
 from torch import nn
 
 from avtex_torch.checkpoints import (checkpoint_not_ported,
-                                     find_encoder_checkpoint)
+                                     find_encoder_checkpoint,
+                                     maybe_load_vggish,
+                                     maybe_load_vggish_into_model)
 from avtex_torch.config import Config
 from avtex_torch.contrastive.model import ContrastiveTextures
+from avtex_torch.device import resolve_device
+from avtex_torch.nn.vggish import VGGish
+
+from .embeddings import vggish_audio_features
+from .engine import driving_audio_logits, seed_segment
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -41,29 +58,18 @@ def _not_yet(what: str, item: str) -> NotImplementedError:
         f"'{item}'")
 
 
-def init_params_for_synthesis(cfg: Config, model: nn.Module,
-                              seed: Optional[int] = None
-                              ) -> Dict[str, torch.Tensor]:
+def flax_style_init(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Random parameters initialised the way flax initialises avtex's
-    model: ``lecun_normal`` convs (truncated normal, std
-    ``sqrt(1/fan_in)/0.8796``, cut at two std), ones/zeros norm scale/bias.
-    Drawn on the CPU from ``torch.Generator().manual_seed(seed)``
-    (``cfg.seed`` by default); returns a float32 state_dict.
-
-    Raises ``NotImplementedError`` for ``norm="affine"`` when a pretrained
-    encoder checkpoint is found: avtex loads it into both towers here.
-    """
-    if cfg.norm == "affine":
-        found = find_encoder_checkpoint(cfg.enc_arch)
-        if found is not None:
-            raise checkpoint_not_ported(
-                found, f"the pretrained {cfg.enc_arch} encoder of "
-                "norm=affine synthesis", "Checkpoint import and observability")
-    g = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    modules: ``lecun_normal`` conv kernels (4-D and 5-D; truncated normal,
+    std ``sqrt(1/fan_in)/0.8796`` with fan_in = C_in x kernel volume, cut
+    at two std), ones/zeros norm scale/bias, zero conv biases. Drawn on
+    the CPU from ``torch.Generator().manual_seed(seed)`` in state_dict
+    order; returns a float32 state_dict."""
+    g = torch.Generator().manual_seed(seed)
     out = {}
     for key, value in model.state_dict().items():
         leaf = key.rsplit(".", 1)[-1]
-        if value.ndim == 5:  # conv kernels, OIDHW
+        if value.ndim in (4, 5):  # conv kernels, OIHW / OIDHW
             fan_in = math.prod(value.shape[1:])
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             t = torch.empty(value.shape, dtype=torch.float32)
@@ -79,12 +85,33 @@ def init_params_for_synthesis(cfg: Config, model: nn.Module,
     return out
 
 
+def init_params_for_synthesis(cfg: Config, model: nn.Module,
+                              seed: Optional[int] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """``flax_style_init(model, seed)`` (``cfg.seed`` by default); for
+    ``model_type=2`` a found ``pytorch_vggish.pth`` is grafted into the
+    shared VGGish (a loud warning without one), as avtex does.
+
+    Raises ``NotImplementedError`` for ``norm="affine"`` when a pretrained
+    encoder checkpoint is found: avtex loads it into both towers here.
+    """
+    if cfg.norm == "affine":
+        found = find_encoder_checkpoint(cfg.enc_arch)
+        if found is not None:
+            raise checkpoint_not_ported(
+                found, f"the pretrained {cfg.enc_arch} encoder of "
+                "norm=affine synthesis", "Checkpoint import and observability")
+    out = flax_style_init(model, cfg.seed if seed is None else seed)
+    if cfg.model_type == 2:
+        out, _ = maybe_load_vggish_into_model(
+            out, context="model_type=2 synthesis (random init)")
+    return out
+
+
 def build_model(cfg: Config, params: Optional[Dict[str, torch.Tensor]],
                 device, **encoder_kwargs: Any) -> ContrastiveTextures:
     """The port's ContrastiveTextures for ``cfg`` on ``device``, loaded
     with ``params`` (a state_dict; None -> seeded flax-style init)."""
-    if cfg.model_type != 1:
-        raise _not_yet("model_type=2", "Audio-conditioned synthesis, -m 2")
     model = ContrastiveTextures(
         arch=cfg.enc_arch, model_type=cfg.model_type, temp=cfg.temp,
         dtype=_DTYPES[cfg.compute_dtype], norm=cfg.norm, **encoder_kwargs)
@@ -127,6 +154,9 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     ``TextureServer.from_frames`` and one request with the cfg's knobs.
 
     ``params`` is the port's state_dict (None: seeded flax-style init);
+    ``audio_path`` is the source's wav (needed for ``model_type=2`` and
+    driving audio), ``driving_audio_path`` a driving wav (its waveform
+    becomes the output track);
     ``interp_fn`` makes the frames at jumps (None: SuperSloMo from a found
     checkpoint, else the crossfade);
     ``encoder_kwargs`` reach the encoder (e.g. ``width``, ``layers``).
@@ -137,8 +167,6 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     """
     from .server import TextureServer  # server.py imports build_model here
 
-    if driving_audio_path is not None:
-        raise _not_yet("driving audio", "Audio-conditioned synthesis, -m 2")
     if walk_on_device:
         raise _not_yet("the device scan walk", "Device scan walk")
     if out_dir is not None and cfg.vcam:
@@ -146,7 +174,7 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     server = TextureServer.from_frames(
         cfg, frames_u8, fps, params, audio_path=audio_path, device=device,
         name=name, interp_fn=interp_fn, **encoder_kwargs)
-    out = server.synthesize()
+    out = server.synthesize(driving_audio=driving_audio_path)
     result = out["result"]
     stitched = {k: out[k] for k in ("frames", "frames_intp", "audio",
                                     "jump_count")}
@@ -220,3 +248,69 @@ def _log_synthesis(logger, server, result, jump_count: int) -> None:
         fig.colorbar(im)
         logger.log_figure(fig, "synth/probs_queryframe", i)
         plt.close(fig)
+
+
+def make_audio_scorer(cfg: Config, video, audio_examples, L: int, W: int,
+                      S: int, device=None):
+    """The reusable driving-audio scoring state for ``cfg.da_feats`` (the
+    port of avtex/synth/pipeline.py:309-416).
+
+    "Mel" scores raw flattened log-mel examples; "VGG" (the reference's
+    default) raw VGGish conv features, from a VGGish at its default bf16
+    whatever ``cfg.compute_dtype`` is (as avtex), seeded flax-style from
+    seed 0 and overwritten by a found ``pytorch_vggish.pth`` (a loud
+    warning without one). What depends only on the source (the module,
+    the per-segment source features) is computed here once; the returned
+    ``score(driving_examples, steps) -> (audio_logits [steps, L], seed_id)``
+    does only per-request work. ``audio_examples`` are the source's
+    [N, 100, 64] examples; ``video``, ``W`` and ``S`` serve
+    ``-daf Contrastive``, which is not ported.
+    """
+    if cfg.da_feats == "Contrastive":
+        raise _not_yet("-daf Contrastive (the VideoForAudio retrieval "
+                       "head)", "Contrastive extras")
+    if audio_examples is None:
+        raise ValueError(
+            f"driving audio given with -daf {cfg.da_feats} but the source "
+            "video has no audio track (-adata): VGG/Mel modes score "
+            "driving audio against source audio. Provide the source wav "
+            "or use -daf Contrastive.")
+    if cfg.da_feats not in ("VGG", "Mel"):
+        raise ValueError(f"unknown -daf {cfg.da_feats!r}")
+    dev = resolve_device(device)
+    source = torch.as_tensor(audio_examples).to(dev)
+
+    if cfg.da_feats == "Mel":
+        def featurize(examples):
+            return examples.reshape(len(examples), -1)
+    else:
+        vg = VGGish()
+        state, _ = maybe_load_vggish(flax_style_init(vg, 0),
+                                     context="-daf VGG scoring")
+        vg.load_state_dict(state)
+        vg = vg.to(dev).eval()
+
+        def featurize(examples):
+            return vggish_audio_features(vg, examples)
+
+    # source rows aligned to segment ids, clipped to the last example
+    seg_ids = np.minimum(np.arange(L), len(source) - 1)
+    src_rows = featurize(source)[torch.from_numpy(seg_ids).to(dev)]
+
+    def score(driving_examples, steps: int):
+        drv_ex = torch.as_tensor(driving_examples).to(dev)
+        ids = np.minimum(np.arange(steps), len(drv_ex) - 1)
+        drv = featurize(drv_ex)[torch.from_numpy(ids).to(dev)]
+        audio_logits = driving_audio_logits(src_rows, drv, cfg.temp)
+        seed_id = seed_segment(source, drv_ex[0], num_segments=L)
+        return audio_logits, seed_id
+
+    return score
+
+
+def driving_audio_rows(cfg: Config, video, audio_examples, driving_examples,
+                       steps: int, L: int, W: int, S: int, device=None):
+    """One-shot ``make_audio_scorer(...)(driving_examples, steps)``:
+    (audio_logits [steps, L], seed_id)."""
+    return make_audio_scorer(cfg, video, audio_examples, L, W, S,
+                             device)(driving_examples, steps)

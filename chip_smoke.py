@@ -45,6 +45,25 @@ non-zero, and no result line is printed):
 5c. the checkpoint round trip: the main path's parameters in avtex's tree
    through save_checkpoint -> restore_checkpoint -> convert_params into a
    new model, whose tables must be bit-identical; file size, restore s;
+5d. audio-conditioned synthesis (model_type=2, driving audio): a 60 s
+   source wav at 22050 Hz whose tones follow the video's brightness phase
+   and a 30 s driving wav at 44100 Hz (the resampler's other ratio),
+   written from a seed; the log-mel examples on the card against the CPU
+   (max |diff| <= 1e-3) and their ms; full-width VGGish on the source
+   examples in bf16 against fp32 (TF32 off) with the same weights, cosine
+   per row >= 0.999, ms per batch of 64 and its share of the bound (1.63
+   GFLOP an example at the bf16 peak); TextureServer.from_frames with
+   Config(model_type=2) on the 60 s video and the source wav: 64 launches
+   per batch, [297, 2304 + 12288] unit-norm tables, cosine >= 0.999
+   against fuse=False, the warm embed beside phase 5's and the profile's
+   VGGish share; 30 s requests with the driving wav at alpha 0.5 under
+   -daf VGG and -daf Mel: [steps, L] finite rows, the audio-matched seed,
+   the frame count of the driving clip's length, the driving waveform as
+   the output track, the scorer built once and reused, a repeat with
+   identical indices; audio_rows_s, walk_s and host-to-host s; a
+   pytorch_vggish.pth from seeded weights under the reference's names
+   (fc head included), found by a server whose VGGish features and -daf
+   VGG rows must equal those of a VGGish loaded directly;
 6. pairwise_l2 against its plain version on the card: the RGB rows of a
    60 s, 30 fps, 224^2 synthetic video (N = 1800, F = 150528), the same
    rows normalized, and ragged shapes (N = 1, F inside one slab, F shorter
@@ -131,6 +150,13 @@ P3_RTOL = 1e-2
 STEM_TOL_REL = 2.0 ** -6
 # SuperSloMo in bf16 vs the same weights in fp32, uint8 mid frames.
 SLOMO_MEAN_TOL, SLOMO_MAX_TOL = 1.0, 32
+# Log-mel on the card vs the CPU: cuFFT and pocketfft round differently,
+# and log(x + 0.01) magnifies a relative error by x / (x + 0.01) < 1.
+MEL_TOL = 1e-3
+# VGGish bf16 vs fp32 with the same weights, and the -m 2 tables with
+# fuse="all" vs fuse=False: cosine per row, as phase 4.
+AUDIO_COS = 0.999
+VGGISH_BATCH = 64
 CLASSIC_SECONDS = 60  # phases 6-7 keep N = 1800 whatever --seconds says
 # fused_stage: slow res2 (SFBottleneck_0/2/4, stride 1) and res3
 # (_6/8/10/12, stride 2) of SlowFast-R50, one kernel launch per block.
@@ -784,6 +810,9 @@ def main() -> int:
                f"({LAUNCHES_PER_BATCH // 2} launches)",
     }]
     del server, outs
+    torch.cuda.empty_cache()
+    kernels[0]["launches_audio_path"] = audio_phase(
+        cfg, video, fps, n_batches, min(embed_times))
     torch.cuda.empty_cache()
 
     kernels.append(classic_phases(report))
@@ -1488,6 +1517,280 @@ def checkpoint_phase(server, cfg, embed) -> None:
         raise AssertionError("restored model's tables differ")
 
 
+def tone_track(seconds: float, sr: int, fps: int, start_frame: int,
+               seed: int) -> np.ndarray:
+    """A tone whose pitch follows ``synthetic_video``'s brightness phase
+    sin(frame / 9), from ``start_frame`` on, plus seeded noise."""
+    g = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f = 300 + 250 * np.sin((start_frame + t * fps) / 9.0)
+    x = 0.4 * np.sin(2 * np.pi * np.cumsum(f) / sr) \
+        + 0.03 * g.standard_normal(len(t))
+    return x.astype(np.float32)
+
+
+def vggish_flops(frames: int = 100, bands: int = 64) -> int:
+    """Operations of one VGGish example: 2 x 9 x C_in x C_out per output
+    pixel of each 3x3 conv (the pools and ReLUs are not counted)."""
+    from avtex_torch.nn.vggish import WIDTHS
+    flops, cin, h, w = 0, 1, frames, bands
+    for widths in WIDTHS:
+        for c in widths:
+            flops += 2 * 9 * cin * c * h * w
+            cin = c
+        h, w = h // 2, w // 2
+    return flops
+
+
+def audio_phase(cfg, video: np.ndarray, fps: int, n_batches: int,
+                m1_embed_s: float) -> int:
+    """Phase 5d: audio-conditioned synthesis at full width. Returns the
+    fused_conv1x1 launches of the model_type=2 server's first embed."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch
+    from avtex_torch.audio import (log_mel_spectrogram, params as aparams,
+                                   resample_to_16k, waveform_to_examples)
+    from avtex_torch.checkpoints import vggish_reference_state
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.media import read_wav, write_wav
+    from avtex_torch.nn.vggish import VGGish
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.synth.embeddings import (
+        precompute_embeddings_from_video, vggish_audio_features)
+    from avtex_torch.synth.engine import (driving_audio_logits,
+                                          num_synthesis_steps)
+    from avtex_torch.synth.pipeline import flax_style_init
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    seconds = len(video) / fps
+    src_path = write_wav(os.path.join(tmp.name, "source.wav"),
+                         tone_track(seconds, 22050, fps, 0, 0), 22050)
+    # the driving clip follows the video's phase from frame 600 on
+    drv_path = write_wav(os.path.join(tmp.name, "driving.wav"),
+                         tone_track(30.0, 44100, fps, 600, 1), 44100)
+    src_wave, src_sr = read_wav(src_path)
+    drv_wave, drv_sr = read_wav(drv_path)
+
+    # ---- the log-mel frontend on the card and on the CPU --------------- #
+    host_ms = []  # the first call includes loading cuFFT and its plan
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ex_gpu = waveform_to_examples(src_wave, src_sr, device="cuda")
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    ex_cpu = waveform_to_examples(src_wave, src_sr, device="cpu")
+    mel_err = float((ex_gpu.cpu() - ex_cpu).abs().max())
+    wave16 = torch.from_numpy(resample_to_16k(src_wave, src_sr)).cuda()
+    dev_ms_mel = time_ms(lambda: log_mel_spectrogram(wave16), reps=20)
+    log(f"[5d] audio: {nvidia_smi_line()}; source {seconds:.0f} s at {src_sr} Hz "
+        f"-> {tuple(ex_gpu.shape)} log-mel examples; card vs CPU max "
+        f"|diff| {mel_err:.3g} (tol {MEL_TOL:g}); waveform_to_examples "
+        f"{host_ms[1]:.2f} ms host to host (resample on the host; the "
+        f"process's first call {host_ms[0]:.2f} ms), the "
+        f"spectrogram {dev_ms_mel:.3f} ms on the device "
+        f"({len(wave16) / aparams.SAMPLE_RATE:.0f} s of 16 kHz audio); "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    if tuple(ex_gpu.shape) != tuple(ex_cpu.shape) or mel_err > MEL_TOL \
+            or ex_gpu.shape[1:] != (100, 64):
+        raise AssertionError("log-mel on the card disagrees with the CPU")
+
+    # ---- VGGish bf16 against fp32 -------------------------------------- #
+    state = flax_style_init(VGGish(torch.float32), 0)
+    nets = {}
+    for dt in (torch.bfloat16, torch.float32):
+        nets[dt] = VGGish(dt)
+        nets[dt].load_state_dict(state)
+        nets[dt] = nets[dt].cuda().eval()
+    feats_bf16 = vggish_audio_features(nets[torch.bfloat16], ex_gpu)
+    with fp32_exact():
+        feats_fp32 = vggish_audio_features(nets[torch.float32], ex_gpu)
+    cos = torch.nn.functional.cosine_similarity(feats_bf16, feats_fp32,
+                                                dim=-1)
+    batch = ex_gpu[:VGGISH_BATCH].contiguous()
+    with torch.inference_mode():
+        ms_bf16 = time_ms(lambda: nets[torch.bfloat16](batch), reps=20)
+        with fp32_exact():
+            ms_fp32 = time_ms(lambda: nets[torch.float32](batch), reps=5)
+    flops = vggish_flops() * VGGISH_BATCH
+    bound = flops / PEAK_BF16_FLOP_S * 1e3
+    log(f"    VGGish full width on {len(ex_gpu)} examples: bf16 vs fp32 "
+        f"cosine min {float(cos.min()):.6f} (tol {AUDIO_COS}); a batch of "
+        f"{VGGISH_BATCH}: bf16 {ms_bf16:.3f} ms, "
+        f"{flops / ms_bf16 / 1e9:.1f} TFLOP/s, {100 * bound / ms_bf16:.1f}% "
+        f"of its {bound:.3f} ms bound ({vggish_flops() / 1e9:.3f} GFLOP an "
+        f"example at {PEAK_BF16_FLOP_S / 1e12:.0f} TFLOP/s); fp32 "
+        f"(no TF32) {ms_fp32:.3f} ms")
+    if feats_bf16.shape != (len(ex_gpu), 12288) \
+            or not torch.isfinite(feats_bf16).all() \
+            or float(cos.min()) < AUDIO_COS:
+        raise AssertionError("VGGish bf16 disagrees with fp32")
+    del nets, feats_bf16, feats_fp32
+
+    # ---- the model_type=2 server --------------------------------------- #
+    cfg2 = dataclasses.replace(cfg, model_type=2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = TextureServer.from_frames(cfg2, video, float(fps),
+                                       audio_path=src_path, device="cuda")
+    load_s = time.perf_counter() - t0
+    launches = launch_counts()["fused_conv1x1"]
+    L, W, S = server.L, server.W, server.S
+    log(f"    TextureServer.from_frames(model_type=2): {load_s:.2f} s, "
+        f"L={L}, {len(server.audio_examples)} source examples, kernel "
+        f"launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != LAUNCHES_PER_BATCH * n_batches:
+        raise AssertionError(f"kernel launched {launches} times, expected "
+                             f"{LAUNCHES_PER_BATCH * n_batches}")
+    for name, tab in (("query", server.q_table), ("target", server.t_table)):
+        norms = torch.linalg.vector_norm(tab, dim=-1)
+        if (tuple(tab.shape) != (L, 2304 + 12288)
+                or not torch.isfinite(tab).all()
+                or float((norms - 1).abs().max()) > 1e-3):
+            raise AssertionError(f"model_type=2 {name} table is wrong: "
+                                 f"{tuple(tab.shape)}")
+
+    def embed():
+        out = precompute_embeddings_from_video(
+            server.model, server.video, W, S, L, server.audio_examples,
+            img_size=cfg.img_size, batch_size=cfg.mini_batchsize)
+        torch.cuda.synchronize()
+        return out
+
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        embed()
+        times.append(time.perf_counter() - t0)
+    log(f"    warm embed (both towers, VGGish included): {min(times):.3f} s "
+        f"(runs {', '.join(f'{t:.3f}' for t in times)}) against "
+        f"model_type=1's {m1_embed_s:.3f} s (phase 5, this run)")
+    profile_embed(embed, min(times), label="model_type=2", detail=False)
+
+    plain = ContrastiveTextures(arch="slowfast", model_type=2, temp=cfg.temp,
+                                norm=cfg.norm, fuse=False)
+    plain.load_state_dict(server.model.state_dict())
+    plain = plain.cuda().eval()
+    pq, pt = precompute_embeddings_from_video(
+        plain, server.video, W, S, L, server.audio_examples,
+        img_size=cfg.img_size, batch_size=cfg.mini_batchsize)
+    cos_q = torch.nn.functional.cosine_similarity(server.q_table, pq, dim=-1)
+    cos_t = torch.nn.functional.cosine_similarity(server.t_table, pt, dim=-1)
+    low = min(float(cos_q.min()), float(cos_t.min()))
+    log(f"    tables fuse='all' vs fuse=False: cosine min {low:.6f}")
+    if low < AUDIO_COS:
+        raise AssertionError("model_type=2 tables with the kernel disagree "
+                             "with cuDNN")
+    del plain, pq, pt
+
+    # ---- driving-audio requests ---------------------------------------- #
+    drv_eg = waveform_to_examples(drv_wave, drv_sr, device="cuda")
+    max_length = min(30 * fps, int(len(drv_eg) / 10 * fps))
+    steps = num_synthesis_steps(max_length, W, S)
+    src_np = server.audio_examples.reshape(len(server.audio_examples), -1)
+    src_np = src_np[:L].double().cpu().numpy()
+    d0 = drv_eg[0].reshape(-1).double().cpu().numpy()
+    sims = (src_np @ d0) / (np.linalg.norm(src_np, axis=1)
+                            * np.linalg.norm(d0))
+    request = dict(seconds=30, alpha=0.5, seed=1, driving_audio=drv_path)
+    for daf in ("VGG", "Mel"):
+        server.cfg = dataclasses.replace(server.cfg, da_feats=daf)
+        outs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = server.synthesize(**request)
+            outs.append((out, time.perf_counter() - t0))
+        (a, a_s), (b, b_s) = outs
+        rows, sid = server._scorer()(drv_eg, steps)
+        r = a["result"]
+        tm = a["timings"]
+        log(f"    -daf {daf} request {dict(request, driving_audio='30 s')}:"
+            f" {len(r.indices)} steps, seed {r.seed_id} (cosine "
+            f"{sims[r.seed_id]:.6f}, best {sims.max():.6f}), "
+            f"{int(r.jumps[1:].sum())} jumps, {len(a['frames'])} frames; "
+            f"scorer built in {tm.get('scorer_s', float('nan')):.3f} s, "
+            f"audio_rows_s {tm['audio_rows_s']:.4f} s (the repeat: "
+            f"{b['timings']['audio_rows_s']:.4f} s), walk_s "
+            f"{tm['walk_s']:.4f} s, stitch {tm['stitch_s']:.4f} s, host to "
+            f"host {a_s:.3f} s (the repeat {b_s:.3f} s)")
+        if (tuple(rows.shape) != (steps, L) or not torch.isfinite(rows).all()
+                or len(r.indices) != steps or sid != r.seed_id
+                or sims[r.seed_id] < sims.max() - 1e-5):
+            raise AssertionError(f"-daf {daf}: bad rows or seed")
+        if len(a["frames"]) != W + (steps - 1) * S:
+            raise AssertionError(f"-daf {daf}: {len(a['frames'])} frames "
+                                 f"for {steps} steps")
+        if a["sample_rate"] != drv_sr or not np.array_equal(a["audio"],
+                                                            drv_wave):
+            raise AssertionError(f"-daf {daf}: output audio is not the "
+                                 "driving waveform")
+        if "scorer_s" not in tm or "scorer_s" in b["timings"] \
+                or len(server._scorers) != (1 if daf == "VGG" else 2):
+            raise AssertionError(f"-daf {daf}: the scorer was not built "
+                                 "once and reused")
+        if not np.array_equal(r.indices, b["result"].indices):
+            raise AssertionError(f"-daf {daf}: a repeated request gave "
+                                 "other indices")
+    del server
+    torch.cuda.empty_cache()
+
+    # ---- the VGGish checkpoint graft ----------------------------------- #
+    vg = VGGish(torch.float32)
+    vg.load_state_dict(flax_style_init(vg, 7))
+    ref = vggish_reference_state(vg)
+    g = torch.Generator().manual_seed(8)
+    for i, (o, k) in enumerate(((4096, 12288), (4096, 4096), (128, 4096))):
+        ref[f"embeddings.{2 * i}.weight"] = torch.randn(o, k, generator=g)
+        ref[f"embeddings.{2 * i}.bias"] = torch.randn(o, generator=g)
+    ckpt = os.path.join(tmp.name, "pytorch_vggish.pth")
+    torch.save(ref, ckpt)
+    size = os.path.getsize(ckpt)
+    os.environ["AVTEX_VGGISH_CKPT"] = ckpt
+    try:
+        short = video[:10 * fps]  # the graft needs no full-length table
+        t0 = time.perf_counter()
+        server = TextureServer.from_frames(
+            dataclasses.replace(cfg2, da_feats="VGG"), short, float(fps),
+            audio_path=src_path, device="cuda")
+        out = server.synthesize(**request)
+        graft_s = time.perf_counter() - t0
+    finally:
+        del os.environ["AVTEX_VGGISH_CKPT"]
+    direct = VGGish()
+    direct.load_state_dict(vg.state_dict())
+    direct = direct.cuda().eval()
+    ex = server.audio_examples
+    with torch.inference_mode():
+        same_w = all(torch.equal(v, direct.state_dict()[k]) for k, v in
+                     server.model.audio_encoder.state_dict().items())
+        f_model = server.model.audio_encoder(ex)
+        f_direct = direct(ex)
+    steps2 = len(out["result"].indices)
+    rows, _ = server._scorer()(drv_eg, steps2)
+    seg = torch.from_numpy(np.minimum(np.arange(server.L), len(ex) - 1))
+    ids = torch.from_numpy(np.minimum(np.arange(steps2), len(drv_eg) - 1))
+    want = driving_audio_logits(
+        vggish_audio_features(direct, ex)[seg.cuda()],
+        vggish_audio_features(direct, drv_eg)[ids.cuda()], cfg.temp)
+    log(f"    pytorch_vggish.pth ({size / 2**20:.1f} MiB, fc head "
+        f"included): the server's VGGish weights equal the file's "
+        f"{same_w}; features max |diff| against a VGGish loaded directly "
+        f"{float((f_model - f_direct).abs().max()):.3g}, -daf VGG rows "
+        f"{float((rows - want).abs().max()):.3g}; server + request "
+        f"{graft_s:.2f} s; phase 5d {time.perf_counter() - t_phase:.1f} s")
+    if not (same_w and torch.equal(f_model, f_direct)
+            and torch.equal(rows, want)):
+        raise AssertionError("the grafted VGGish differs from the file's")
+    del server, direct
+    tmp.cleanup()
+    return launches
+
+
 def profile_embed(embed, wall_s: float, label: str = "",
                   detail: bool = True) -> None:
     """Device time of one warm embed by kernel and by op (torch.profiler);
@@ -1497,31 +1800,37 @@ def profile_embed(embed, wall_s: float, label: str = "",
     import torch
     from torch.profiler import ProfilerActivity, profile
     from avtex_torch.nn.slowfast import STEMS_RANGE
+    from avtex_torch.nn.vggish import VGGISH_RANGE
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         embed()
 
     cuda = torch.autograd.DeviceType.CUDA
+    ranges = (STEMS_RANGE, VGGISH_RANGE)
     # (a named range may also show as a device-side annotation: not a
     # kernel)
     kernels = [(dev_ms(e), e.count, e.key) for e in prof.key_averages()
                if getattr(e, "device_type", None) == cuda and dev_ms(e) > 0
-               and e.key != STEMS_RANGE]
+               and e.key not in ranges]
     total = sum(k[0] for k in kernels)
     if not total:
         log("    profiler: no device time recorded")
         return
     fused = sum(k[0] for k in kernels if "fused_conv1x1" in k[2])
-    # the host-side range's device time: its kernels' time
-    stems = sum(getattr(e, "device_time_total",
-                        getattr(e, "cuda_time_total", 0)) / 1e3
-                for e in prof.key_averages() if e.key == STEMS_RANGE
-                and getattr(e, "device_type", None) != cuda)
+    # a host-side range's device time: its kernels' time
+    in_range = {r: sum(getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0)) / 1e3
+                       for e in prof.key_averages() if e.key == r
+                       and getattr(e, "device_type", None) != cuda)
+                for r in ranges}
+    stems, vggish = in_range[STEMS_RANGE], in_range[VGGISH_RANGE]
     log(f"    profiled warm embed ({label}): kernels {total:.1f} ms on the "
         f"device = {100 * total / (wall_s * 1e3):.1f}% of the unprofiled "
         f"wall {wall_s * 1e3:.1f} ms; fused_conv1x1 {fused:.1f} ms "
         f"({100 * fused / total:.1f}%); stems {stems:.1f} ms "
-        f"({100 * stems / total:.1f}%)")
+        f"({100 * stems / total:.1f}%)"
+        + (f"; VGGish {vggish:.1f} ms ({100 * vggish / total:.1f}%)"
+           if vggish else ""))
     if not detail:
         return
     for ms, count, key in sorted(kernels, reverse=True)[:8]:

@@ -9,8 +9,13 @@ names. Both models run in fp32 for that comparison (the port's
 0``) takes each row's maximum, and at these random weights two entries
 of one row lie 5e-5 apart, which bf16 rounding, done differently by the
 two frameworks, decides either way; in fp32 the tables agree to 1e-6.
+The same holds for ``-m 2 -e -da <wav> -daf VGG|Mel`` from an
+avtex-written ``-m 2`` checkpoint, with the clip's wav in ``-adata``, a
+driving wav in ``-dadata`` and the scorer's VGGish in fp32 from a
+``pytorch_vggish.pth`` that the test writes.
 Also: the random-init opt-out, the missing-checkpoint error, the
-refusals of what is not ported, and the results-folder rule."""
+refusals of what is not ported, the pairing of ``-da`` entries with
+videos and the results-folder rule."""
 
 import dataclasses
 import os
@@ -133,8 +138,9 @@ def test_cli_without_checkpoint(clip_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     ([], "'Training'"),
-    (["-e", "-m", "2"], "-m 2"),
-    (["-e", "-da", "song"], "-m 2"),
+    (["-e", "-m", "2", "-da", "song", "-daf", "Contrastive"],
+     "'Contrastive extras'"),
+    (["-e", "-da", "song", "-daf", "Contrastive"], "'Contrastive extras'"),
     (["-e", "--mesh"], "'Multi-GPU'"),
 ])
 def test_cli_refuses_what_is_not_ported(clip_dir, tmp_path, extra, item):
@@ -191,3 +197,115 @@ def test_parser_has_avtex_flags():
     theirs = {a for act in jax_cli.build_parser()._actions
               for a in act.option_strings}
     assert theirs <= ours and ours - theirs == {"-device"}
+
+
+# --------------------------------------------------------------------- #
+# -m 2 with driving audio
+# --------------------------------------------------------------------- #
+
+FLAGS_M2 = ["-m", "2"] + FLAGS[2:]
+
+
+def _wav(path, seconds, sr, hz, seed):
+    from avtex.media import write_wav
+    g = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.4 * np.sin(2 * np.pi * hz * t * (1 + 0.3 * np.sin(t * 3))) \
+        + 0.05 * g.standard_normal(len(t))
+    return write_wav(str(path), x.astype(np.float32), sr)
+
+
+@pytest.fixture(scope="module")
+def m2_run(clip_dir, tmp_path_factory):
+    """Wavs, a pytorch_vggish.pth and avtex's -m 2 checkpoint at the path
+    avtex's CLI derives from the flags."""
+    from avtex.contrastive.model import ContrastiveTextures
+    from avtex.media import video_fps
+    from avtex.train.checkpoint import save_checkpoint
+    from avtex_torch.checkpoints import vggish_reference_state
+    from avtex_torch.nn.vggish import VGGish
+    tmp = tmp_path_factory.mktemp("m2")
+    (tmp / "audio").mkdir()
+    (tmp / "target").mkdir()
+    _wav(tmp / "audio" / "clip.wav", 2.0, 22050, 440, 0)
+    _wav(tmp / "target" / "song.wav", 1.6, 44100, 660, 1)
+    vg = VGGish(torch.float32)
+    torch.save(vggish_reference_state(vg), tmp / "pytorch_vggish.pth")
+    argv = _m2_flags(clip_dir, tmp)
+    args = jax_cli.build_parser().parse_args(argv)
+    cfg = jax_cli.args_to_config(args).derive_geometry(
+        video_fps(str(clip_dir / "clip.mp4")))
+    model = ContrastiveTextures(arch="resnet10", model_type=2, temp=0.1)
+    params = jax_pipeline.init_params_for_synthesis(
+        cfg, model, np.zeros((60, 64, 64, 3), np.uint8), cfg.window)
+    best = cfg.default_ckpt_path("clip")
+    name = os.path.basename(best)[:-len("_best")]
+    assert save_checkpoint(cfg.ckpt, name, params, 5, "resnet10", 0.3,
+                           True) == best
+    return tmp
+
+
+def _m2_flags(clip_dir, tmp, *extra):
+    return (FLAGS_M2 + ["-vdata", str(clip_dir), "-adata",
+                        str(tmp / "audio"), "-dadata", str(tmp / "target"),
+                        "-ckpt", str(tmp / "ckpt"), "-logdir",
+                        str(tmp / "logs")] + list(extra))
+
+
+@pytest.mark.parametrize("daf", ["VGG", "Mel"])
+def test_cli_m2_driving_audio_matches_avtex(monkeypatch, clip_dir, m2_run,
+                                            daf):
+    import functools
+
+    import jax.numpy as jnp
+
+    import avtex.nn.vggish as jax_vggish
+    from avtex_torch.nn.vggish import VGGish
+    from avtex_torch.synth import pipeline
+    tmp = m2_run
+    _fp32(monkeypatch)
+    monkeypatch.setattr(jax_vggish, "VGGish", functools.partial(
+        jax_vggish.VGGish, dtype=jnp.float32))
+    monkeypatch.setattr(pipeline, "VGGish", functools.partial(
+        VGGish, dtype=torch.float32))
+    monkeypatch.setenv("AVTEX_VGGISH_CKPT", str(tmp / "pytorch_vggish.pth"))
+    extra = ["-da", "song", "-daf", daf, "-alpha", "0.4"]
+    want = _run_avtex(monkeypatch, _m2_flags(
+        clip_dir, tmp, *extra, "-rf", str(tmp / f"avtex_{daf}")))
+    got = cli.main(_m2_flags(clip_dir, tmp, *extra, "-rf",
+                             str(tmp / f"port_{daf}"), "-device", "cpu"))
+    assert len(want) == len(got) == 1
+    np.testing.assert_array_equal(got[0]["result"].indices,
+                                  want[0]["result"].indices)
+    assert got[0]["result"].seed_id == want[0]["result"].seed_id
+    folder = "results_clip_target_clip_song"
+    names = {k: sorted(os.listdir(tmp / f"{k}_{daf}" / folder))
+             for k in ("avtex", "port")}
+    assert names["port"] == names["avtex"]
+    assert any(n.endswith("_report.html") for n in names["port"])
+
+
+def test_cli_m2_needs_the_source_wav(clip_dir, tmp_path):
+    argv = FLAGS_M2 + ["-vdata", str(clip_dir), "-adata", str(tmp_path),
+                       "-ckpt", str(tmp_path / "ckpt"), "-device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="model_type=2 requires"):
+        cli.main(argv)
+
+
+def test_driving_audio_pairs_with_videos_by_index():
+    cfg = config.Config(driving_audio=["a", "b.wav"], daf_resume=["x", "y"],
+                        evaluate=True, results_folder=None)
+    jcfg = jax_config.Config(driving_audio=["a", "b.wav"],
+                             daf_resume=["x", "y"], evaluate=True)
+    for itr, video in enumerate(("v0", "v1")):
+        ours = cli.per_video_config(cfg, video, itr)
+        theirs = jax_cli.per_video_config(jcfg, video, itr)
+        assert ours.driving_audio == theirs.driving_audio
+        assert ours.daf_resume == theirs.daf_resume
+        assert ours.results_folder == theirs.results_folder
+    assert cli.per_video_config(cfg, "v1", 1).results_folder == \
+        "results_v1_target_v1_b"
+    with pytest.raises(ValueError, match="by index"):
+        cli.per_video_config(cfg, "v2", 2)
+    with pytest.raises(ValueError, match="by index"):
+        jax_cli.per_video_config(jcfg, "v2", 2)

@@ -508,3 +508,84 @@ def test_checkpoint_round_trip_of_a_cuda_model(cuda, tmp_path):
         for tower in ("query", "target"):
             assert torch.equal(model.embed(clips, tower=tower),
                                again.embed(clips, tower=tower))
+
+
+# --------------------------------------------------------------------- #
+# Audio: the log-mel frontend, VGGish, a driving-audio request
+# --------------------------------------------------------------------- #
+
+def _tone(seconds, sr, seed=0):
+    import numpy as np
+    g = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.4 * np.sin(2 * np.pi * 440 * t * (1 + 0.2 * np.sin(3 * t))) \
+        + 0.05 * g.standard_normal(len(t))
+    x[: len(x) // 6] *= 1e-3  # quiet frames, where log(x + 0.01) is steep
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("sr", [16000, 44100])
+def test_mel_frontend_on_the_card_matches_the_cpu(cuda, sr):
+    """cuFFT and the CPU's FFT round differently: log-mel within 1e-3
+    (chip_smoke.py phase 5d's gate), the product in fp32 (no TF32)."""
+    from avtex_torch.audio import waveform_to_examples
+    x = _tone(6.0, sr)
+    got = waveform_to_examples(x, sr, device=cuda)
+    want = waveform_to_examples(x, sr, device="cpu")
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+
+
+def test_vggish_bf16_matches_fp32(cuda):
+    """The same weights in bf16 (avtex's default) and fp32: cosine per
+    row >= 0.999 (chip_smoke.py phase 5d)."""
+    from avtex_torch.audio import waveform_to_examples
+    from avtex_torch.nn.vggish import VGGish
+    from avtex_torch.synth.embeddings import vggish_audio_features
+    from avtex_torch.synth.pipeline import flax_style_init
+    state = flax_style_init(VGGish(torch.float32), 0)
+    nets = {}
+    for dt in (torch.bfloat16, torch.float32):
+        nets[dt] = VGGish(dt)
+        nets[dt].load_state_dict(state)
+        nets[dt] = nets[dt].to(cuda).eval()
+    ex = waveform_to_examples(_tone(10.0, 22050, 1), 22050, device=cuda)
+    a = vggish_audio_features(nets[torch.bfloat16], ex)
+    b = vggish_audio_features(nets[torch.float32], ex)
+    assert a.shape == b.shape == (len(ex), 12288)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    assert torch.isfinite(a).all() and float(cos.min()) >= 0.999
+
+
+def test_driving_audio_request_on_the_card(cuda, tmp_path):
+    import numpy as np
+    from avtex_torch.config import Config
+    from avtex_torch.media import read_wav, write_wav
+    from avtex_torch.synth import TextureServer
+    g = np.random.default_rng(0)
+    t, res = 96, 64
+    phase = np.sin(np.arange(t) / 5.0)
+    frames = np.clip(127 + 60 * phase[:, None, None, None]
+                     + 10 * g.standard_normal((t, res, res, 3)),
+                     0, 255).astype(np.uint8)
+    src = write_wav(str(tmp_path / "src.wav"), _tone(4.0, 22050, 2), 22050)
+    drv = write_wav(str(tmp_path / "drv.wav"), _tone(3.0, 44100, 3), 44100)
+    for daf in ("VGG", "Mel"):
+        cfg = Config(enc_arch="slowfast", model_type=2, norm="affine",
+                     img_size=64, mini_batchsize=16, da_feats=daf)
+        server = TextureServer.from_frames(cfg, frames, 24.0, audio_path=src,
+                                           device=cuda, width=16,
+                                           layers=(1, 1, 1, 1))
+        assert server.q_table.shape == (
+            server.L, server.model.q_embedder.video_feat_dim + 12288)
+        assert torch.isfinite(server.q_table).all()
+        a = server.synthesize(seconds=10, driving_audio=drv, alpha=0.5,
+                              seed=1)
+        b = server.synthesize(seconds=10, driving_audio=drv, alpha=0.5,
+                              seed=1)
+        assert "scorer_s" in a["timings"] and "scorer_s" not in b["timings"]
+        np.testing.assert_array_equal(a["result"].indices,
+                                      b["result"].indices)
+        assert a["sample_rate"] == 44100
+        np.testing.assert_array_equal(a["audio"], read_wav(drv)[0])
+        assert len(a["frames"]) < 10 * 24  # the 3 s clip sets the length

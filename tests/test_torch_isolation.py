@@ -26,6 +26,9 @@ bad = sorted(k for k in sys.modules
                                     "avtex"))
 print(len(names), bad)
 assert not bad, bad
+for name in ("avtex_torch.audio.mel", "avtex_torch.audio.params",
+             "avtex_torch.nn.vggish"):
+    assert name in names, name
 """
 
 

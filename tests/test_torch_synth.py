@@ -9,6 +9,8 @@
   seed, embedding tables within 1e-4.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -215,8 +217,12 @@ def test_server_refuses_what_is_not_ported(tiny_clip):
                                        **SMALL)
     with pytest.raises(NotImplementedError, match="Device scan walk"):
         server.synthesize(seconds=2, walk_on_device=True)
-    with pytest.raises(NotImplementedError, match="-m 2"):
-        server.synthesize(seconds=2, driving_audio="x.wav")
-    with pytest.raises(NotImplementedError, match="-m 2"):
+    # driving audio is ported; its -daf Contrastive mode is not
+    # (make_audio_scorer refuses before the wav is read)
+    server.cfg = dataclasses.replace(server.cfg, da_feats="Contrastive")
+    with pytest.raises(NotImplementedError, match="Contrastive extras"):
+        server.synthesize(seconds=2, driving_audio=__file__)
+    # model_type=2 is ported; without source audio it raises as avtex does
+    with pytest.raises(ValueError, match="requires audio examples"):
         TextureServer.from_frames(Config(enc_arch="slowfast", model_type=2),
                                   frames, fps, device="cpu", **SMALL)
