@@ -1,8 +1,13 @@
 """Contrastive video-textures CLI (the port of avtex/cli/main.py), with the
 same flags plus ``-device``.
 
-Ported: the synthesis branch, ``-e``, for ``-m 1`` and ``-m 2`` (which
-needs ``<adata>/<video>.wav``): per video, derive W/S from the fps,
+Ported: training (the default, without ``-e``) and the synthesis branch,
+``-e``, for ``-m 1`` and ``-m 2`` (which needs ``<adata>/<video>.wav``).
+Training reads the video (and, for ``-m 2``, the wav's log-mel
+examples), derives W/S from the fps, trains the contrastive model and
+writes avtex's ``<ckpt>/<logname>_latest`` every epoch and ``_best`` on
+improvement, where ``-e`` with the same flags finds it. Synthesis, per
+video: derive W/S from the fps,
 restore the checkpoint at ``-resume`` or the path derived from the flags
 (``Config.default_ckpt_path``; avtex's flax msgpack file, read by
 ``avtex_torch.train.restore_checkpoint``), synthesize and write the
@@ -10,21 +15,23 @@ texture, the bar plots and the report under ``results_<video>``. With
 ``-da`` the i-th driving wav (``<dadata>/<name>.wav``) pairs with the
 i-th video, as in avtex, scored by ``-daf VGG`` or ``Mel`` and blended
 with weight ``1 - alpha``; results go under
-``results_<video>_target_<video>_<audio>``. Training (no ``-e``),
-``--mesh`` and ``-daf Contrastive`` raise ``NotImplementedError`` naming
-their ROADMAP.md Queue 1 item.
+``results_<video>_target_<video>_<audio>``. ``--mesh`` and ``-daf
+Contrastive`` raise ``NotImplementedError`` naming their ROADMAP.md
+Queue 1 item.
 
 One deviation from avtex: ``-rf/-results_folder`` defaults to None, and
 any folder given is the parent of the per-video folder (avtex ignores an
 explicit ``-rf results``, its default's value).
 
 Usage:
+  python -m avtex_torch.cli.main -m 1 -vdata data/videos -vl clip -bs 8 -negs 8
   python -m avtex_torch.cli.main -m 1 -e -vdata data/videos -vl clip
   python -m avtex_torch.cli.main -m 2 -e -vdata data/videos \
       -adata data/audio -vl clip -da song -dadata audio/target -daf VGG
 
 Decoding needs OpenCV; on a host without it drive
-``avtex_torch.synth.synthesize_frames`` from decoded frames.
+``avtex_torch.train.train_video`` and ``avtex_torch.synth.
+synthesize_frames`` from decoded frames.
 """
 
 from __future__ import annotations
@@ -176,15 +183,41 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.driving_audio and args.da_feats == "Contrastive":
         raise _not_yet("-daf Contrastive (the VideoForAudio retrieval "
                        "head)", "Contrastive extras")
-    if not args.evaluate:
-        raise _not_yet("training (the CLI without -e)", "Training")
     if args.mesh:
         raise _not_yet("--mesh", "Multi-GPU")
 
 
+def train_one_video(cfg, video_name: str, video_path: str,
+                    audio_path, device=None) -> dict:
+    """Train on one video (avtex's train branch of ``run_one_video``):
+    ``_latest`` every epoch and ``_best`` on improvement under
+    ``cfg.ckpt``, named ``cfg.train_logname(video)``; resumes from
+    ``-resume`` when given."""
+    from avtex_torch.audio import waveform_to_examples
+    from avtex_torch.media import read_video, read_wav
+    from avtex_torch.obs import Logger
+    from avtex_torch.train import train_video
+
+    frames, fps = read_video(video_path, cfg.subsample_rate)
+    cfg = cfg.derive_geometry(fps)
+    audio_examples = None
+    if cfg.model_type == 2:
+        wav, sr = read_wav(audio_path)
+        audio_examples = waveform_to_examples(wav, sr, device).cpu().numpy()
+    name = cfg.train_logname(video_name)
+    state, history = train_video(
+        cfg, frames, audio_examples, logger=Logger(cfg.logdir, name),
+        resume=cfg.resume or None, ckpt_dir=cfg.ckpt, ckpt_name=name,
+        device=device)
+    best = min(history) if history else float("inf")
+    print(f"[avtex_torch] trained {video_name}: {len(history)} epochs, "
+          f"best loss {best:.4f}")
+    return {"state": state, "history": history}
+
+
 def run_one_video(cfg, video_name: str, device=None) -> dict:
-    """Synthesize one video, once per driving wav (avtex's -e branch of
-    ``run_one_video``)."""
+    """Train on one video, or with ``-e`` synthesize it once per driving
+    wav (avtex's ``run_one_video``)."""
     from avtex_torch.contrastive.model import ContrastiveTextures
     from avtex_torch.convert import convert_params
     from avtex_torch.media import video_fps
@@ -198,6 +231,9 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
     if cfg.model_type == 2 and (audio_path is None
                                 or not os.path.exists(audio_path)):
         raise FileNotFoundError(f"model_type=2 requires {audio_path}")
+    if not cfg.evaluate:
+        return train_one_video(cfg, video_name, video_path, audio_path,
+                               device)
     cfg = cfg.derive_geometry(video_fps(video_path))
 
     resume = cfg.resume or cfg.default_ckpt_path(video_name)

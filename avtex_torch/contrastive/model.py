@@ -13,6 +13,9 @@ avtex/contrastive/model.py:53-150).
   registering it again, so its weights appear once in ``state_dict``.
   ``forward`` gives the training ``[B, 1+negs]`` logits,
   ``embed(tower=...)`` the rows of the synthesis tables.
+
+``remat`` (both classes) checkpoints the video encoders' residual blocks
+for training; the parameter names are the same either way.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ class SegmentEmbedder(nn.Module):
     def __init__(self, arch: str = "resnet18", model_type: int = 1,
                  dtype: torch.dtype = torch.bfloat16, norm: str = "group",
                  audio_encoder: Optional[nn.Module] = None,
-                 **encoder_kwargs: Any):
+                 remat: bool = False, **encoder_kwargs: Any):
         super().__init__()
         _check_model_type(model_type)
         if model_type == 2 and audio_encoder is None:
@@ -48,7 +51,8 @@ class SegmentEmbedder(nn.Module):
         self.model_type = model_type
         self._shared = (audio_encoder,)
         self.video_encoder, self.video_feat_dim, self.input_kind = (
-            build_encoder(arch, dtype=dtype, norm=norm, **encoder_kwargs))
+            build_encoder(arch, dtype=dtype, norm=norm, remat=remat,
+                          **encoder_kwargs))
 
     @property
     def audio_encoder(self) -> Optional[nn.Module]:
@@ -75,7 +79,8 @@ class ContrastiveTextures(nn.Module):
 
     def __init__(self, arch: str = "resnet18", model_type: int = 1,
                  temp: float = 0.1, dtype: torch.dtype = torch.bfloat16,
-                 norm: str = "group", **encoder_kwargs: Any):
+                 norm: str = "group", remat: bool = False,
+                 **encoder_kwargs: Any):
         super().__init__()
         _check_model_type(model_type)
         self.arch, self.model_type, self.temp = arch, model_type, temp
@@ -83,9 +88,9 @@ class ContrastiveTextures(nn.Module):
         if model_type == 2:
             self.audio_encoder = audio = VGGish(dtype=dtype)
         self.q_embedder = SegmentEmbedder(arch, model_type, dtype, norm,
-                                          audio, **encoder_kwargs)
+                                          audio, remat, **encoder_kwargs)
         self.t_embedder = SegmentEmbedder(arch, model_type, dtype, norm,
-                                          audio, **encoder_kwargs)
+                                          audio, remat, **encoder_kwargs)
 
     def forward(self, q_frames, t_frames, q_audio=None, t_audio=None
                 ) -> torch.Tensor:

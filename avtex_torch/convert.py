@@ -17,6 +17,15 @@ mapping is a renaming plus layout changes:
 avtex's tree (``{"params": ...}``, float32 numpy), e.g. for
 ``avtex_torch.train.save_checkpoint``.
 
+``convert_opt_state(tree, model)`` and ``export_opt_state(momentum,
+count)`` carry the optimizer across both ways. avtex's optimizer is
+``optax.chain(add_decayed_weights(wd), sgd(schedule, momentum))``, whose
+state tree is ``{"0": {}, "1": {"0": {"trace": <params tree>}, "1":
+{"count": <int32>}}}``: the momentum trace has the parameter tree's own
+structure, so it maps onto the ``momentum_buffer`` of each parameter of
+``torch.optim.SGD`` by the same renaming, and ``count`` is the number of
+steps taken.
+
 Pinned names (avtex/nn/slowfast.py): ``SFBottleneck_{0..}`` interleaved
 slow/fast, top-level ``Conv_0`` (slow stem) and ``Conv_1..4`` (laterals),
 ``Affine_0..5`` / ``GroupNorm_0..5``. Unknown and missing keys raise,
@@ -119,3 +128,24 @@ def export_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+def convert_opt_state(tree: Mapping, model: nn.Module
+                      ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """avtex's optimizer state tree -> (momentum buffers by the port's
+    parameter name, float32; the step count)."""
+    try:
+        trace = tree["1"]["0"]["trace"]
+        count = tree["1"]["1"]["count"]
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"not avtex's SGD optimizer state (no {e}): "
+                         f"keys {sorted(tree)}") from None
+    return convert_params(trace, model), int(np.asarray(count))
+
+
+def export_opt_state(momentum: Mapping[str, torch.Tensor], count: int
+                     ) -> Dict:
+    """Momentum buffers by the port's parameter name and the step count ->
+    avtex's optimizer state tree; the inverse of ``convert_opt_state``."""
+    return {"0": {}, "1": {"0": {"trace": export_params(momentum)},
+                           "1": {"count": np.array(count, np.int32)}}}

@@ -10,6 +10,8 @@ ports it.
 
 from __future__ import annotations
 
+import inspect
+import sys
 from typing import Any
 
 import torch
@@ -34,11 +36,14 @@ _LATER = {
 
 
 def build_encoder(arch: str, dtype: torch.dtype = torch.bfloat16,
-                  norm: str = "group", **kwargs: Any):
+                  norm: str = "group", remat: bool = False, **kwargs: Any):
     """Instantiate a video encoder: (module, feat_dim, input_kind).
 
-    ``kwargs`` reach the encoder's constructor (SlowFast: ``layers``,
-    ``width``, ``fuse``, ``s2d_stem``; ResNet3D: ``layers``, ``width``).
+    ``remat`` checkpoints the encoder's residual blocks (training memory;
+    an encoder without the field warns and trains without it, as avtex
+    does). ``kwargs`` reach the encoder's constructor (SlowFast:
+    ``layers``, ``width``, ``fuse``, ``s2d_stem``; ResNet3D: ``layers``,
+    ``width``).
     """
     if arch in _LATER:
         raise NotImplementedError(
@@ -48,5 +53,11 @@ def build_encoder(arch: str, dtype: torch.dtype = torch.bfloat16,
         raise ValueError(f"unknown encoder arch {arch!r}; have "
                          f"{sorted(set(_PORTED) | set(_LATER))}")
     factory, kind = _PORTED[arch]
+    if "remat" in inspect.signature(factory).parameters:
+        kwargs["remat"] = remat
+    elif remat:
+        print(f"[avtex_torch] WARNING: encoder {arch!r} does not support "
+              "remat; training without activation checkpointing",
+              file=sys.stderr)
     module = factory(dtype=dtype, norm=norm, **kwargs)
     return module, module.feat_dim, kind

@@ -9,7 +9,12 @@ port of avtex/nn/resnet3d.py).
   inside, NCDHW tensors in ``channels_last_3d`` memory. Module names
   follow the flax tree (``Conv_k``, ``Affine_k`` / ``GroupNorm_k``,
   ``BasicBlock3D_i`` / ``Bottleneck3D_i``), so ``avtex_torch.convert``
-  carries avtex's parameters over.
+  carries avtex's parameters over. With ``remat`` (avtex's field, for
+  training), each residual block runs under activation checkpointing
+  (``run_block``): its backward recomputes the block's forward, so peak
+  activation memory holds about one block. Each block is checkpointed
+  whole, saving nothing inside it (avtex's default ``REMAT_POLICY =
+  None``). The names do not change.
 - ``Affine``: folded frozen-BatchNorm, ``x * scale + bias`` per channel in
   the activation dtype; parameters stay float32.
 - ``GroupNorm``: flax's GroupNorm semantics — ``num_groups = min(32, ch)``,
@@ -26,7 +31,18 @@ from typing import Sequence, Tuple, Type
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+
+def run_block(block: nn.Module, x: torch.Tensor, remat: bool
+              ) -> torch.Tensor:
+    """``block(x)``, under activation checkpointing when ``remat`` and a
+    backward can follow (grad enabled)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(block, x,
+                                                 use_reentrant=False)
+    return block(x)
 
 
 def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -144,14 +160,15 @@ class Bottleneck3D(_Block):
 class ResNet3D(nn.Module):
     """Video encoder on ``[B, T, H, W, 3]`` clips; returns ``[B, feat_dim]``
     float32. Conv weights and activations in ``dtype``; norm parameters
-    float32."""
+    float32. ``remat`` checkpoints each residual block (training
+    memory)."""
 
     def __init__(self, block: Type[_Block] = BasicBlock3D,
                  layers: Sequence[int] = (2, 2, 2, 2), groups: int = 1,
                  width: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 norm: str = "group"):
+                 norm: str = "group", remat: bool = False):
         super().__init__()
-        self.dtype, self.norm = dtype, norm
+        self.dtype, self.norm, self.remat = dtype, norm, remat
         self.Conv_0 = nn.Conv3d(3, 64, 7, (1, 2, 2), padding=3, bias=False)
         self.add_module(f"{norm_prefix(norm)}_0", make_norm(norm, 64))
         in_ch, idx = 64, 0
@@ -176,7 +193,8 @@ class ResNet3D(nn.Module):
         x = getattr(self, f"{norm_prefix(self.norm)}_0")(self.Conv_0(x))
         x = F.max_pool3d(torch.relu(x), 3, 2, 1)
         for i in range(self.n_blocks):
-            x = getattr(self, f"{self.block_name}_{i}")(x)
+            x = run_block(getattr(self, f"{self.block_name}_{i}"), x,
+                          self.remat)
         # avtex averages in the compute dtype, then casts to float32
         return x.mean(dim=(2, 3, 4)).float()
 

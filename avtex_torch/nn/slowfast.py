@@ -37,7 +37,7 @@ from torch import nn
 from avtex_torch.ops.fused_matmul import fused_conv1x1
 from avtex_torch.ops.s2d_stem import fast_stem_s2d, fast_stem_s2d_pooled
 
-from .resnet3d import make_norm, norm_prefix
+from .resnet3d import make_norm, norm_prefix, run_block
 
 ALPHA = 4          # fast/slow frame-rate ratio
 BETA_INV = 8       # slow/fast channel ratio
@@ -167,15 +167,18 @@ class SlowFastR50(nn.Module):
     stay fp32 as in avtex. ``fuse`` defaults to ``"all"`` for
     ``norm="affine"``, so the inference path launches the 1x1 kernel.
     ``s2d_stem`` runs the stems in space-to-depth form (module docstring).
+    ``remat`` checkpoints each bottleneck (training memory; the stems and
+    laterals are not checkpointed, as in avtex).
     """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  dtype: torch.dtype = torch.bfloat16, norm: str = "group",
-                 fuse: Union[bool, str] = "all", s2d_stem: bool = True):
+                 fuse: Union[bool, str] = "all", s2d_stem: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.layers, self.width, self.dtype, self.norm = (
             tuple(layers), width, dtype, norm)
-        self.s2d_stem = s2d_stem
+        self.s2d_stem, self.remat = s2d_stem, remat
         w, wf = width, width // BETA_INV
         p = norm_prefix(norm)
 
@@ -184,6 +187,8 @@ class SlowFastR50(nn.Module):
         self.add_module(f"{p}_0", make_norm(norm, w))
         self.fast_stem_kernel = nn.Parameter(
             torch.empty(wf, 3, 5, 7, 7))
+        # the init nn.Conv3d gives its weight, not uninitialised memory
+        nn.init.kaiming_uniform_(self.fast_stem_kernel, a=5 ** 0.5)
         self.add_module(f"{p}_1", make_norm(norm, wf))
         self._add_lateral(wf, 2 * wf, 2)
 
@@ -261,8 +266,11 @@ class SlowFastR50(nn.Module):
         block_idx = 0
         for i, n_blocks in enumerate(self.layers):
             for _ in range(n_blocks):
-                slow = getattr(self, f"SFBottleneck_{block_idx}")(slow)
-                fast = getattr(self, f"SFBottleneck_{block_idx + 1}")(fast)
+                slow = run_block(getattr(self, f"SFBottleneck_{block_idx}"),
+                                 slow, self.remat)
+                fast = run_block(
+                    getattr(self, f"SFBottleneck_{block_idx + 1}"), fast,
+                    self.remat)
                 block_idx += 2
             if i != len(self.layers) - 1:
                 slow = torch.cat([slow, self._lateral(fast, 3 + i)], dim=1)

@@ -58,9 +58,12 @@ def _scatter_map(f: int) -> Tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=None)
 def _scatter_tensors(f: int, device: torch.device):
+    # normal tensors even when first asked for under inference_mode (the
+    # server's embed): a training step saves them for its backward
     idx, valid = _scatter_map(f)
-    return (torch.from_numpy(idx.reshape(-1)).to(device),
-            torch.from_numpy(valid.reshape(-1)).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(idx.reshape(-1)).to(device),
+                torch.from_numpy(valid.reshape(-1)).to(device))
 
 
 def s2d_stem_kernel(weight: torch.Tensor, f: int = 4) -> torch.Tensor:

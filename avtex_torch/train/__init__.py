@@ -1,7 +1,11 @@
-"""Training-side modules of the port. So far only the checkpoint files
-(``checkpoint.py``); the training loop is ROADMAP.md Queue 1
-'Training'."""
+"""Training: the InfoNCE loop (SGD with momentum and weight decay, the
+staircase StepLR, early stop, exact resume) and avtex's checkpoint
+files."""
 
 from .checkpoint import restore_checkpoint, save_checkpoint
+from .loop import (TrainConfigError, TrainState, create_state,
+                   make_lr_schedule, make_train_step, train_video)
 
-__all__ = ["restore_checkpoint", "save_checkpoint"]
+__all__ = ["TrainConfigError", "TrainState", "create_state",
+           "make_lr_schedule", "make_train_step", "restore_checkpoint",
+           "save_checkpoint", "train_video"]

@@ -91,7 +91,27 @@ non-zero, and no result line is printed):
    model-chain times beside the bound; per block the launch plan
    (stage_fused.plan: tile, consumer warpgroups, weight slots, shared
    memory, CTAs and the occupancy query's CTAs per SM, padded share), the
-   kernel's -Xptxas -v registers, ms, TFLOP/s and share of its bound.
+   kernel's -Xptxas -v registers, ms, TFLOP/s and share of its bound;
+9. training (no hand kernel: avtex trains through no Pallas kernel) on
+   the same 60 s video (W = 15, S = 6: 296 train queries), bf16 with an
+   fp32 master copy, GroupNorm, checkpointed blocks, augmentation, at
+   -bs 8 -negs 8 (80 clips of 15 x 224^2 a step): (a) ResNet18, 5 steps,
+   and (b) SlowFast-R50, 3 steps: finite losses, ms per step after a
+   warm-up step, clips/s, peak memory; (c) 15 ResNet18 steps on one
+   batch without augmentation: the last loss below the first; (d) peak
+   memory of one ResNet18 step with and without checkpointing at -bs 2
+   -negs 2 and at (a)'s batch; (e) a width-16 ResNet10 at 64 px in fp32
+   (TF32 off), two steps on the card and on the CPU from the same
+   parameters and draws: losses within 1e-4, the parameters' relative
+   L2 error within 1e-4; (f) save_checkpoint after (a), restore_checkpoint
+   into a new state (parameters and momentum bit-identical), the next
+   step resumed against the uninterrupted one under deterministic
+   algorithms (the same loss; parameters bit-identical or within 1e-3 of
+   each tensor's largest, max-pool backward having no deterministic CUDA
+   kernel), the file through convert_params into a norm="group"
+   TextureServer whose tables are bit-identical to the in-memory
+   model's, and a 10 s request; (g) model_type=2 on phase 5d's source
+   wav, 2 steps: finite losses, the VGGish weights moved.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -102,6 +122,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -175,6 +196,33 @@ STAGE_FRO = 1e-2
 # before the residual add (fused_stage adds it in fp32) and, with
 # fuse=False, run cuDNN convs: cosine per slice, as phase 4.
 STAGE_COS = 0.999
+# Phase 9: the training batch (the reference's default is -bs 32 -negs 20,
+# cut here for the phase's time), the card-against-CPU gates (fp32, TF32
+# off: the two sum convolutions in other orders) and the resumed step's
+# gate where it is not bit-identical (max-pool backward has no
+# deterministic CUDA kernel: its atomics sum overlapping windows in any
+# order).
+TRAIN_BS, TRAIN_NEGS = 8, 8
+CPU_LOSS_TOL = CPU_PARAM_TOL = 1e-4
+RESUME_TOL = 1e-3
+# (e)'s network: at width 8 and 32 px ResNet10's res5 is one voxel, and
+# GroupNorm over its two-value groups makes even the forward ill-posed in
+# fp32 (two CPU backends part by 1.5e-3 in the first loss); at width 16,
+# 64 px and LR 1e-3 they agree within 4e-6 (loss) and 2.3e-6 (relative L2
+# of the parameters). GroupNorm biases' gradients come out of
+# cancellation, so single tensors part by up to 1e-2: the gate is on all
+# parameters together.
+CPU_WIDTH, CPU_SIZE, CPU_LR = 16, 64, 1e-3
+# device-time kinds of a training step's kernels, by name
+TRAIN_KINDS = (("conv", ("conv", "xmma", "cudnn", "wgrad", "dgrad", "fprop",
+                         "sm90_", "sm80_")),
+               ("group norm", ("group_norm", "groupnorm")),
+               ("max pool", ("max_pool",)),
+               ("matmul", ("gemm", "cutlass")),
+               ("optimizer", ("multi_tensor", "foreach")),
+               ("elementwise and copies", ("elementwise", "vectorized",
+                                           "copy", "reduce", "unrolled",
+                                           "cat", "index", "where")))
 
 
 def log(msg: str) -> None:
@@ -817,6 +865,8 @@ def main() -> int:
 
     kernels.append(classic_phases(report))
     kernels.append(stage_phase(cfg, video, state, res, report))
+    torch.cuda.empty_cache()
+    train_phase(video, fps)
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -824,6 +874,311 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def train_phase(video: np.ndarray, fps: int) -> dict:
+    """Phase 9: contrastive training on the card (module docstring).
+    Returns the phase's numbers."""
+    import tempfile
+    import torch
+    from avtex_torch.audio import waveform_to_examples
+    from avtex_torch.config import Config
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.convert import convert_opt_state, convert_params
+    from avtex_torch.data.pipeline import SegmentBatches
+    from avtex_torch.media import read_wav, write_wav
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.synth.pipeline import flax_style_init
+    from avtex_torch.train import (create_state, make_train_step,
+                                   restore_checkpoint, save_checkpoint)
+    from avtex_torch.train.loop import step_generator
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    torch.cuda.empty_cache()
+    out = {}
+
+    def config(arch="resnet18", bs=TRAIN_BS, negs=TRAIN_NEGS, **kw):
+        return Config(enc_arch=arch, batch_size=bs, n_negs=negs, seed=0,
+                      **kw).derive_geometry(fps)
+
+    def batches(cfg, n, audio=None):
+        data = SegmentBatches(video, cfg.window, cfg.train_stride,
+                              n_negs=cfg.n_negs, batch_size=cfg.batch_size,
+                              audio_examples=audio, seed=cfg.seed,
+                              drop_last=True)
+        it = data.epoch(0)
+        return data, [next(it) for _ in range(n)]
+
+    def build(cfg, n_batches, remat=True, dtype=torch.bfloat16, params=None,
+              device="cuda", **kw):
+        model = ContrastiveTextures(cfg.enc_arch, cfg.model_type, cfg.temp,
+                                    dtype=dtype, norm="group", remat=remat,
+                                    **kw).to(device)
+        state = create_state(model, cfg, n_batches, params)
+        step = make_train_step(model, cfg.img_size,
+                               cfg.enc_arch == "slowfast", cfg.augment)
+        return state, step
+
+    def run(state, step, bats, first_step=0):
+        """Steps over ``bats``: losses, and ms of each (synchronised)."""
+        losses, ms = [], []
+        for k, batch in enumerate(bats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, step_generator(0, first_step + k))
+            losses.append(float(m["loss"]))  # waits for the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    def finite(losses, label):
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{label}: a loss is not finite: {losses}")
+
+    def timed(label, cfg, n_steps, **kw):
+        """(a)/(b): ``n_steps`` steps, the first a warm-up; ms per step,
+        clips/s and peak memory; then one profiled step."""
+        data, bats = batches(cfg, n_steps + 2)
+        torch.cuda.reset_peak_memory_stats()
+        state, step = build(cfg, len(data), **kw)
+        losses, ms = run(state, step, bats[:n_steps])
+        finite(losses, label)
+        clips = cfg.batch_size * (2 + cfg.n_negs)
+        warm = float(np.mean(ms[1:]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"    ({label}) {cfg.enc_arch}, -bs {cfg.batch_size} -negs "
+            f"{cfg.n_negs} ({clips} clips of {cfg.window}x{cfg.img_size}^2 "
+            f"a step), bf16, fp32 master, remat, augmentation: {n_steps} "
+            f"steps, losses {', '.join(f'{x:.4f}' for x in losses)}; "
+            f"first step {ms[0]:.1f} ms, then {warm:.1f} ms per step "
+            f"(runs {', '.join(f'{x:.1f}' for x in ms[1:])}), "
+            f"{clips / warm * 1e3:.1f} clips/s, peak {peak:.2f} GiB "
+            f"({smi})")
+        out[label] = {"arch": cfg.enc_arch, "step_ms": warm,
+                      "first_step_ms": ms[0], "clips_per_s": clips / warm * 1e3,
+                      "peak_gib": peak, "losses": losses}
+        # where a step's device time goes: two more steps, the second
+        # profiled (kernel_device_ms)
+        gen = iter(range(n_steps, n_steps + 2))
+        kms = kernel_device_ms(lambda: step(
+            state, bats[n_steps], step_generator(0, next(gen))))
+        total = sum(kms.values())
+        shares = {}
+        for name, t in kms.items():
+            kind = next((k for k, pats in TRAIN_KINDS
+                         if any(p in name.lower() for p in pats)), "other")
+            shares[kind] = shares.get(kind, 0.0) + t
+        top = sorted(kms.items(), key=lambda kv: -kv[1])[:6]
+        log(f"        one profiled step: device time {total:.1f} ms of "
+            f"{warm:.1f} ms ({100 * (1 - total / warm):.1f}% idle); "
+            + ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in
+                        sorted(shares.items(), key=lambda kv: -kv[1]))
+            + "; top kernels: " + "; ".join(
+                f"{demangled(k)[:60]} {v:.1f} ms" for k, v in top))
+        out[label].update(device_ms=total, shares={
+            k: v / total for k, v in shares.items()})
+        return state, step, data, bats
+
+    log(f"[9] training: the {len(video) / fps:.0f} s video at "
+        f"{video.shape[1]}^2, W = {config().window}, S = "
+        f"{config().train_stride} ({smi})")
+
+    # (a) ResNet18 at full width, then (f) on the same state
+    cfg_a = config()
+    state_a, step_a, data_a, bats_a = timed("a", cfg_a, 5)
+    log(f"    {data_a.n_train} train queries, {len(data_a)} steps an "
+        f"epoch at -bs {cfg_a.batch_size}")
+    if data_a.n_train != 296:
+        raise AssertionError(f"{data_a.n_train} train queries, expected 296")
+
+    # (f) checkpoint, resume, serve
+    t_f = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    saved_step = state_a.step
+    path = save_checkpoint(tmp.name, "smoke", state_a.params_tree(), 1,
+                           cfg_a.enc_arch, out["a"]["losses"][-1], True,
+                           opt_state=state_a.opt_state_tree(),
+                           step=state_a.step)
+    serve_cfg = Config(enc_arch="resnet18", norm="group", seed=0)
+    trained = {k: v.detach().clone()
+               for k, v in state_a.model.state_dict().items()}
+    in_memory = TextureServer.from_frames(serve_cfg, video, float(fps),
+                                          params=trained, device="cuda")
+    want_tables = (in_memory.q_table.clone(), in_memory.t_table.clone())
+    del in_memory, trained
+    torch.cuda.empty_cache()
+    payload = restore_checkpoint(path)
+    state_r, step_r = build(cfg_a, len(data_a))
+    state_r.load_params(convert_params(payload["state"], state_r.model))
+    momentum, count = convert_opt_state(payload["opt_state"], state_r.model)
+    state_r.load_momentum(momentum)
+    state_r.step = int(payload["step"])
+    mom_a = state_a.momentum()
+    restored_exact = count == state_a.step and all(
+        torch.equal(state_r.params[n], p) and torch.equal(
+            state_r.optimizer.state[state_r.params[n]]["momentum_buffer"],
+            mom_a[n]) for n, p in state_a.params.items())
+    if not restored_exact:
+        raise AssertionError("the restored parameters or momentum differ")
+    served = TextureServer.from_frames(
+        serve_cfg, video, float(fps),
+        params=convert_params(payload["state"],
+                              ContrastiveTextures("resnet18")),
+        device="cuda")
+    same_tables = (torch.equal(served.q_table, want_tables[0])
+                   and torch.equal(served.t_table, want_tables[1]))
+    req = served.synthesize(seconds=10, seed=1)
+    frames = req["frames"]
+    if (not same_tables or frames.dtype != np.uint8
+            or frames.shape[1:] != video.shape[1:]
+            or len(frames) < 10 * fps):
+        raise AssertionError(f"trained model served wrong: tables equal "
+                             f"{same_tables}, frames {frames.shape}")
+    del served
+    torch.cuda.empty_cache()
+    # the next step from the file and from memory, deterministic kernels
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss_u, _ = run(state_a, step_a, bats_a[5:6], first_step=5)
+        loss_r, _ = run(state_r, step_r, bats_a[5:6], first_step=5)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bit_identical = loss_u == loss_r and all(
+        torch.equal(state_r.params[n], p) for n, p in state_a.params.items())
+    param_err = max(float((state_r.params[n] - p).detach().abs().max())
+                    / max(float(p.detach().abs().max()), 1e-30)
+                    for n, p in state_a.params.items())
+    log(f"    (f) save_checkpoint after (a) ({os.path.getsize(path) / 2**20:.1f}"
+        f" MiB, step {saved_step}) -> restore_checkpoint: parameters and "
+        f"momentum bit-identical; TextureServer.from_frames(norm='group') "
+        f"from the file: [{len(want_tables[0])}, {want_tables[0].shape[1]}] "
+        f"tables bit-identical to the in-memory model's; 10 s request "
+        f"{len(req['result'].indices)} steps, {len(frames)} frames; the "
+        f"next step resumed vs uninterrupted (deterministic algorithms): "
+        f"loss {loss_r[0]:.6f} vs {loss_u[0]:.6f}, bit-identical "
+        f"{bit_identical}, parameters within {param_err:.3g} of each "
+        f"tensor's largest; {time.perf_counter() - t_f:.1f} s ({smi})")
+    if loss_r != loss_u or param_err > RESUME_TOL:
+        raise AssertionError("the resumed step differs from the "
+                             "uninterrupted one")
+    out["f"] = {"bit_identical": bit_identical, "param_err": param_err,
+                "ckpt_mib": os.path.getsize(path) / 2**20}
+    tmp.cleanup()
+    del state_a, step_a, state_r, step_r, bats_a
+    torch.cuda.empty_cache()
+
+    # (b) SlowFast-R50
+    timed("b", config("slowfast"), 3)
+    torch.cuda.empty_cache()
+
+    # (c) overfit one fixed batch, no augmentation
+    cfg_c = config(augment=False)
+    data_c, [batch_c] = batches(cfg_c, 1)
+    state_c, step_c = build(cfg_c, len(data_c))
+    losses_c, ms_c = run(state_c, step_c, [batch_c] * 15)
+    finite(losses_c, "c")
+    log(f"    (c) overfit one batch of (a)'s size, no augmentation: loss "
+        f"{losses_c[0]:.4f} -> {losses_c[-1]:.4f} in 15 steps "
+        f"({', '.join(f'{x:.3f}' for x in losses_c)}); "
+        f"{np.mean(ms_c[1:]):.1f} ms per step ({smi})")
+    if not losses_c[-1] < losses_c[0]:
+        raise AssertionError("the overfit loss did not fall")
+    out["c"] = {"first": losses_c[0], "last": losses_c[-1]}
+    del state_c, step_c
+    torch.cuda.empty_cache()
+
+    # (d) the memory evidence for remat=True
+    cfg_d = config(bs=2, negs=2)
+    data_d, [batch_d] = batches(cfg_d, 1)
+    peaks = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state_d, step_d = build(cfg_d, len(data_d), remat=remat)
+        loss_d, ms_d = run(state_d, step_d, [batch_d])
+        finite(loss_d, "d")
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del state_d, step_d
+    # and (a)'s batch without remat, beside (a)'s peak with it
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data_full, [batch_full] = batches(cfg_a, 1)
+    state_d, step_d = build(cfg_a, len(data_full), remat=False)
+    loss_full, ms_full = run(state_d, step_d, [batch_full])
+    finite(loss_full, "d")
+    peak_full = torch.cuda.max_memory_allocated() / 2**30
+    del state_d, step_d
+    log(f"    (d) one ResNet18 step at -bs 2 -negs 2 (8 clips): peak "
+        f"{peaks[True]:.2f} GiB with remat, {peaks[False]:.2f} GiB without "
+        f"({peaks[False] / peaks[True]:.2f}x); at (a)'s -bs "
+        f"{cfg_a.batch_size} -negs {cfg_a.n_negs} without remat: peak {peak_full:.2f} GiB against (a)'s "
+        f"{out['a']['peak_gib']:.2f} GiB with it, {ms_full[0]:.1f} ms for "
+        f"its first step ({smi})")
+    out["d"] = {"remat_gib": peaks[True], "no_remat_gib": peaks[False],
+                "full_no_remat_gib": peak_full}
+
+    # (e) the card against the CPU, fp32
+    cfg_e = config("resnet10", bs=2, negs=2, img_size=CPU_SIZE,
+                   compute_dtype="float32", lr=CPU_LR)
+    data_e, bats_e = batches(cfg_e, 2)
+    params_e = flax_style_init(
+        ContrastiveTextures("resnet10", width=CPU_WIDTH), 0)
+    runs = {}
+    with fp32_exact(), torch.backends.mkldnn.flags(enabled=False):
+        for dev in ("cpu", "cuda"):
+            st, sp = build(cfg_e, len(data_e), dtype=torch.float32,
+                           params=params_e, device=dev, width=CPU_WIDTH)
+            losses, _ = run(st, sp, bats_e)
+            runs[dev] = (losses, {n: p.detach().cpu()
+                                  for n, p in st.params.items()})
+    (loss_c, par_c), (loss_g, par_g) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) for a, b in zip(loss_c, loss_g))
+    par_err = float(torch.sqrt(sum(((par_g[n] - p) ** 2).sum()
+                                   for n, p in par_c.items()))
+                    / torch.sqrt(sum((p ** 2).sum() for p in par_c.values())))
+    worst = max(par_c, key=lambda n: float((par_g[n] - par_c[n]).norm()
+                                           / par_c[n].norm()))
+    worst_err = float((par_g[worst] - par_c[worst]).norm()
+                      / par_c[worst].norm())
+    log(f"    (e) resnet10 width {CPU_WIDTH} at {CPU_SIZE}^2, fp32, TF32 "
+        f"off, LR {CPU_LR:g}, two steps with augmentation from the same "
+        f"parameters and batches: losses card {loss_g} vs CPU {loss_c}, "
+        f"max |diff| {loss_err:.3g} (<= {CPU_LOSS_TOL:g}); parameters' "
+        f"relative L2 error {par_err:.3g} (<= {CPU_PARAM_TOL:g}); the "
+        f"worst tensor {worst} at {worst_err:.3g} ({smi})")
+    if loss_err > CPU_LOSS_TOL or par_err > CPU_PARAM_TOL:
+        raise AssertionError("training on the card disagrees with the CPU")
+    out["e"] = {"loss_err": loss_err, "param_err": par_err,
+                "worst_tensor_err": worst_err}
+
+    # (g) model_type=2 with phase 5d's source wav
+    with tempfile.TemporaryDirectory() as wav_dir:
+        wave, sr = read_wav(write_wav(
+            os.path.join(wav_dir, "source.wav"),
+            tone_track(len(video) / fps, 22050, fps, 0, 0), 22050))
+    examples = waveform_to_examples(wave, sr, device="cuda").cpu().numpy()
+    cfg_g = config(model_type=2)
+    data_g, bats_g = batches(cfg_g, 2, audio=examples)
+    state_g, step_g = build(cfg_g, len(data_g))
+    vgg0 = state_g.params["audio_encoder.Conv_0.weight"].clone()
+    losses_g, ms_g = run(state_g, step_g, bats_g)
+    finite(losses_g, "g")
+    moved = float((state_g.params["audio_encoder.Conv_0.weight"]
+                   - vgg0).abs().max())
+    log(f"    (g) -m 2, ResNet18 + VGGish on {len(examples)} examples of "
+        f"the source wav: losses {', '.join(f'{x:.4f}' for x in losses_g)}, "
+        f"ms {', '.join(f'{x:.1f}' for x in ms_g)}; VGGish Conv_0 moved by "
+        f"{moved:.3g} ({smi})")
+    if not moved > 0:
+        raise AssertionError("the VGGish weights did not move")
+    out["g"] = {"losses": losses_g, "vggish_moved": moved}
+    del state_g, step_g
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"    phase 9: {out['seconds']:.1f} s ({smi})")
+    log("[9] summary " + json.dumps(out))
+    return out
 
 
 def classic_phases(build_report: dict) -> dict:

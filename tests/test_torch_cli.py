@@ -13,8 +13,9 @@ The same holds for ``-m 2 -e -da <wav> -daf VGG|Mel`` from an
 avtex-written ``-m 2`` checkpoint, with the clip's wav in ``-adata``, a
 driving wav in ``-dadata`` and the scorer's VGGish in fp32 from a
 ``pytorch_vggish.pth`` that the test writes.
-Also: the random-init opt-out, the missing-checkpoint error, the
-refusals of what is not ported, the pairing of ``-da`` entries with
+Also: training without ``-e`` (``-bs 2 -negs 2 -epochs 1``), whose
+``_best`` file ``-e`` then finds, the random-init opt-out, the
+missing-checkpoint error, the refusals of what is not ported, the pairing of ``-da`` entries with
 videos and the results-folder rule."""
 
 import dataclasses
@@ -137,7 +138,7 @@ def test_cli_without_checkpoint(clip_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ([], "'Training'"),
+    (["--mesh"], "'Multi-GPU'"),
     (["-e", "-m", "2", "-da", "song", "-daf", "Contrastive"],
      "'Contrastive extras'"),
     (["-e", "-da", "song", "-daf", "Contrastive"], "'Contrastive extras'"),
@@ -147,6 +148,27 @@ def test_cli_refuses_what_is_not_ported(clip_dir, tmp_path, extra, item):
     argv = [a for a in _flags(clip_dir, tmp_path) if a != "-e"] + extra
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
+
+
+def test_cli_trains_then_synthesizes_from_its_checkpoint(clip_dir, tmp_path,
+                                                        capsys):
+    """Without -e the CLI trains and writes avtex's _latest and _best under
+    the flag-derived name; -e with the same flags finds and loads _best
+    without -allow_random_init."""
+    train = [a for a in _flags(clip_dir, tmp_path) if a != "-e"] + [
+        "-bs", "2", "-negs", "2", "-epochs", "1", "-device", "cpu"]
+    [out] = cli.main(train)
+    assert len(out["history"]) == 1 and out["state"].step == 3
+    names = sorted(os.listdir(tmp_path / "ckpt"))
+    assert [n.rsplit("_", 1)[1] for n in names] == ["best", "latest"]
+    args = jax_cli.build_parser().parse_args(train[:-2])
+    jax_cfg = jax_cli.args_to_config(args).derive_geometry(30.0)
+    assert names[0] == os.path.basename(jax_cfg.default_ckpt_path("clip"))
+    capsys.readouterr()
+    [syn] = cli.main(train + ["-e", "-nintp", "-rf", str(tmp_path / "rf")])
+    assert f"restored checkpoint {tmp_path / 'ckpt' / names[0]}" in \
+        capsys.readouterr().out
+    assert len(syn["result"].indices) > 0
 
 
 def test_cli_runs_on_the_card_unless_asked(clip_dir, tmp_path, monkeypatch,

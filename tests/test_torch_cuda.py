@@ -511,6 +511,68 @@ def test_checkpoint_round_trip_of_a_cuda_model(cuda, tmp_path):
 
 
 # --------------------------------------------------------------------- #
+# Training: one step on the card
+# --------------------------------------------------------------------- #
+
+def _train_case(arch, device, dtype):
+    """A width-16 encoder at 64 px, LR 1e-3 (chip_smoke.py's phase 9 (e)
+    says why not narrower), on ``device``."""
+    import numpy as np
+    from avtex_torch.config import Config
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.data.pipeline import SegmentBatches
+    from avtex_torch.synth.pipeline import flax_style_init
+    from avtex_torch.train import create_state, make_train_step
+    kw = dict(width=16)
+    if arch == "slowfast":
+        kw["layers"] = (1, 1, 1, 1)
+    cfg = Config(enc_arch=arch, img_size=64, n_negs=2, batch_size=2,
+                 lr=1e-3)
+    model = ContrastiveTextures(arch, dtype=dtype, remat=True, **kw)
+    params = flax_style_init(model, 0)
+    state = create_state(model.to(device), cfg, 1, params)
+    video = np.random.default_rng(0).integers(0, 256, (30, 72, 72, 3),
+                                              dtype=np.uint8)
+    batch = next(SegmentBatches(video, 8, 2, n_negs=2, batch_size=2).epoch(0))
+    return state, make_train_step(model, 64, arch == "slowfast"), batch
+
+
+@pytest.mark.parametrize("arch", ["resnet10", "slowfast"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One fp32 step (TF32 off, augmentation drawn from the same CPU
+    generator) from the same parameters on the card and on the CPU
+    (oneDNN off, tests/test_torch_train.py says why): loss within 1e-4,
+    all master parameters together within 1e-4 relative L2 (single
+    GroupNorm biases' gradients come out of cancellation)."""
+    runs = {}
+    for dev in ("cpu", cuda):
+        with torch.backends.cudnn.flags(allow_tf32=False), \
+                torch.backends.mkldnn.flags(enabled=False):
+            state, step, batch = _train_case(arch, dev, torch.float32)
+            state, m = step(state, batch, torch.Generator().manual_seed(0))
+        runs[str(dev)] = (float(m["loss"]),
+                          {n: p.detach().cpu()
+                           for n, p in state.params.items()})
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(cuda)]
+    assert abs(lc - lg) <= 1e-4
+    diff = sum(float(((pc[n] - pg[n]) ** 2).sum()) for n in pc)
+    norm = sum(float((p ** 2).sum()) for p in pc.values())
+    assert (diff / norm) ** 0.5 <= 1e-4
+
+
+def test_bf16_train_step_on_the_card_steps_the_master_copy(cuda):
+    state, step, batch = _train_case("resnet10", cuda, torch.bfloat16)
+    before = {n: p.clone() for n, p in state.params.items()}
+    state, m = step(state, batch, torch.Generator().manual_seed(0))
+    assert torch.isfinite(m["loss"]) and state.step == 1
+    for n, p in state.model.named_parameters():
+        assert state.params[n].dtype == torch.float32
+        assert torch.equal(p.detach(), state.params[n].to(p.dtype)), n
+    assert any(not torch.equal(before[n], p)
+               for n, p in state.params.items())
+
+
+# --------------------------------------------------------------------- #
 # Audio: the log-mel frontend, VGGish, a driving-audio request
 # --------------------------------------------------------------------- #
 

@@ -27,7 +27,9 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for name in ("avtex_torch.audio.mel", "avtex_torch.audio.params",
-             "avtex_torch.nn.vggish"):
+             "avtex_torch.nn.vggish", "avtex_torch.train.loop",
+             "avtex_torch.data.pipeline", "avtex_torch.contrastive.infonce",
+             "avtex_torch.obs.meters"):
     assert name in names, name
 """
 
@@ -55,6 +57,7 @@ def test_entry_points_without_device_raise_on_a_cpu_only_machine(
     from avtex_torch.config import Config
     from avtex_torch.device import resolve_device
     from avtex_torch.synth import TextureServer, synthesize_frames
+    from avtex_torch.train import train_video
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     frames = np.zeros((40, 16, 16, 3), np.uint8)
@@ -65,4 +68,7 @@ def test_entry_points_without_device_raise_on_a_cpu_only_machine(
         TextureServer.from_frames(cfg, frames, 8.0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         synthesize_frames(cfg, frames, 8.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_video(Config(enc_arch="resnet10", img_size=16, window=4,
+                           stride=2), frames)
     assert resolve_device("cpu").type == "cpu"
