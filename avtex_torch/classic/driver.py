@@ -4,13 +4,15 @@ avtex/classic/driver.py).
 ``run_classic(cfg, video_path, ...)`` decodes the video and calls
 ``run_classic_frames(cfg, frames_u8, fps, ...)``, which does the rest:
 features, then per sigma D1 -> D2 (strided only in mode 3) -> value
-iteration -> threshold on the device, one fetch of the thresholded matrix,
-the host walk, the frame ids, the position bars, the interpolated track
-(mode 1) and the outputs. D1 is recomputed per sigma, as avtex does.
+iteration -> threshold -> the walk, all on the device, one fetch of the
+walk and the sigmas, then the frame ids, the position bars, the
+interpolated track (mode 1) and the outputs. D1 is recomputed per sigma,
+as avtex does. The thresholded matrix reaches the host only for the
+logger's figures.
 
-The walk is ``sample_texture_walk_host`` with
-``np.random.default_rng(cfg.seed + i)`` for the i-th sigma; avtex walks on
-the device with ``jax.random.key(cfg.seed + i)``, which torch cannot
+The walk is ``sample_texture_walk`` with a ``torch.Generator`` on the
+device seeded ``cfg.seed + i`` for the i-th sigma; avtex walks on the
+device with ``jax.random.key(cfg.seed + i)``, which torch cannot
 reproduce: the same distribution, another stream. Jumps are interpolated
 with ``interp_fn`` if given, else (mode 1) with SuperSloMo from a
 checkpoint that ``find_slomo_checkpoint`` finds, loaded once per run,
@@ -38,7 +40,7 @@ from .d2 import compute_d2
 from .features import frame_features
 from .future_cost import anticipated_future_cost, threshold_rows
 from .interp_track import burn_position_bars, classic_interp_track
-from .sampler import expand_walk_to_frames, sample_texture_walk_host
+from .sampler import expand_walk_to_frames, sample_texture_walk
 
 
 def run_classic(cfg: ClassicConfig, video_path: str,
@@ -81,7 +83,8 @@ def run_classic_frames(cfg: ClassicConfig, frames_u8: np.ndarray, fps: float,
 
     Returns {"sigma_results": {sigma: entry}, "jump_counts": {sigma: n}}.
     Each entry holds "walk", "jump_count", "frame_ids", "sigmas"
-    (D1, D2, D3), "p3_new" (the fetched matrix the walk used), "sweeps"
+    (D1, D2, D3), "p3_new" (the thresholded matrix the walk used, on the
+    device), "sweeps"
     (value-iteration sweeps), "timings" (seconds per stage) and "paths";
     with ``out_dir=None`` no file is written and the entry holds the
     texture's "frames", "frames_intp" and "audio" instead.
@@ -91,7 +94,12 @@ def run_classic_frames(cfg: ClassicConfig, frames_u8: np.ndarray, fps: float,
         interp_fn = maybe_make_slomo_interp_fn(device=dev)
     frames = np.asarray(frames_u8)
     sr = sample_rate or cfg.sr
-    feats, normalize = frame_features(cfg.feats, frames, dev)
+    audio_examples = None
+    if cfg.feats == "ResNet_VGGish" and audio is not None:
+        from avtex_torch.audio import waveform_to_examples
+        audio_examples = waveform_to_examples(audio, sr, device=dev)
+    feats, normalize = frame_features(cfg.feats, frames, dev, audio_examples,
+                                      cfg.filter_size, cfg.stride)
     if num_steps is None:
         num_steps = int(cfg.new_video_length * fps)
 
@@ -119,23 +127,24 @@ def run_classic_frames(cfg: ClassicConfig, frames_u8: np.ndarray, fps: float,
         p3, s3 = distance_to_transition_probs(d3, sigma_factor)
         p3_new = threshold_rows(p3, cfg.threshold)
         lap("d3_s", sync=True)
-        p3_host = p3_new.cpu().numpy()
-        sigmas = tuple(float(s) for s in torch.stack([s1, s2, s3]).cpu())
-        lap("fetch_s")
 
-        n = p3_host.shape[0]
+        n = p3_new.shape[0]
         start = min(cfg.start_frame, n - 1)
         # mode 2 transitions from min(chosen + stride, n-1) and clips its
         # emitted blocks to the MATRIX size, not the frame count
         adv = cfg.stride if cfg.model_type == 2 else 0
-        walk, jumps = sample_texture_walk_host(
-            p3_host, start, num_steps, np.random.default_rng(cfg.seed + i),
+        walk, jumps = sample_texture_walk(
+            p3_new, start, num_steps,
+            generator=torch.Generator(device=dev).manual_seed(cfg.seed + i),
             advance=adv)
+        lap("walk_s", sync=True)
+        walk, jumps = walk.cpu().numpy(), jumps.cpu().numpy()
+        sigmas = tuple(float(s) for s in torch.stack([s1, s2, s3]).cpu())
+        lap("fetch_s")
         clip_n = n if cfg.model_type == 2 else len(frames)
         frame_ids = expand_walk_to_frames(
             walk, cfg.model_type, cfg.stride, cfg.filter_size, clip_n)
         frame_ids = np.clip(frame_ids, 0, len(frames) - 1)
-        lap("walk_s")
 
         # main track: red position bar burned into every frame, always
         tex_frames = burn_position_bars(frames[frame_ids], frame_ids,
@@ -155,7 +164,7 @@ def run_classic_frames(cfg: ClassicConfig, frames_u8: np.ndarray, fps: float,
 
         entry = {"walk": walk, "jump_count": int(jumps.sum()),
                  "frame_ids": frame_ids, "sigmas": sigmas,
-                 "p3_new": p3_host, "sweeps": sweeps, "timings": t,
+                 "p3_new": p3_new, "sweeps": sweeps, "timings": t,
                  "paths": {}}
         if out_dir is not None:
             from avtex_torch.media import save_texture_outputs

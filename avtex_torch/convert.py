@@ -7,9 +7,11 @@ a ``state_dict`` for the port's ``ContrastiveTextures``. It needs neither
 jax nor flax. The port names its modules after the flax tree, so the
 mapping is a renaming plus layout changes:
 
-- ``Conv_k/kernel`` and ``fast_stem_kernel``: DHWIO -> OIDHW;
-- 4-D ``Conv_k/kernel`` (VGGish, ``audio_encoder`` of model_type=2):
-  HWIO -> OIHW, ``Conv_k/bias`` unchanged;
+- ``Conv_k/kernel`` and ``fast_stem_kernel``: DHWIO -> OIDHW (a grouped
+  kernel, ``[kt, kh, kw, in/groups, out]``, the same transpose to
+  ``[out, in/groups, kt, kh, kw]``);
+- 4-D ``Conv_k/kernel`` (VGGish, ``audio_encoder`` of model_type=2, and
+  the 2D ResNets): HWIO -> OIHW, ``Conv_k/bias`` unchanged;
 - ``Affine_k/{scale,bias}``: unchanged;
 - ``GroupNorm_k/{scale,bias}`` -> ``GroupNorm_k.{weight,bias}``.
 
@@ -28,7 +30,9 @@ steps taken.
 
 Pinned names (avtex/nn/slowfast.py): ``SFBottleneck_{0..}`` interleaved
 slow/fast, top-level ``Conv_0`` (slow stem) and ``Conv_1..4`` (laterals),
-``Affine_0..5`` / ``GroupNorm_0..5``. Unknown and missing keys raise,
+``Affine_0..5`` / ``GroupNorm_0..5``; the other encoders' blocks are
+``BasicBlock3D_i``, ``Bottleneck3D_i``, ``ResNeXtBottleneck3D_i``,
+``DenseLayer3D_i`` and ``ResNet2D_0/BasicBlock2D_i``, as flax names them. Unknown and missing keys raise,
 listing them; so do shape mismatches.
 """
 

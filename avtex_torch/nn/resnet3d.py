@@ -99,10 +99,11 @@ class _Block(nn.Module):
     them, a projection shortcut when the shape changes, ReLU after the
     residual add."""
 
-    def _pairs(self, norm: str, specs) -> None:
+    def _pairs(self, norm: str, specs, conv=None) -> None:
         self.norm = norm
         for i, (cin, cout, k, stride, groups) in enumerate(specs):
-            self.add_module(f"Conv_{i}", _conv(cin, cout, k, stride, groups))
+            self.add_module(f"Conv_{i}",
+                            (conv or _conv)(cin, cout, k, stride, groups))
             self.add_module(f"{norm_prefix(norm)}_{i}", make_norm(norm, cout))
 
     def _conv_norm(self, i: int, x: torch.Tensor) -> torch.Tensor:

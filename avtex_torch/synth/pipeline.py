@@ -3,9 +3,10 @@
 ``synthesize(cfg, video_path, params)`` decodes the video and calls
 ``synthesize_frames(cfg, frames_u8, fps, params)``, which builds a
 ``TextureServer`` (both towers embed every segment once), answers one
-request with the cfg's knobs (the ``[L, L]`` walk on the host, then
-stitching) and, with ``out_dir``, writes the videos, the per-step
-entropy and survivor bar plots and the HTML report, as avtex does. With a
+request with the cfg's knobs (the ``[L, L]`` walk on the host, or on the
+device with ``walk_on_device=True``, then stitching) and, with
+``out_dir``, writes the videos, the per-step entropy and survivor bar
+plots and the HTML report, as avtex does. With a
 ``logger`` it logs avtex's scalars (and with ``cfg.visualize_evaluate``,
 ``-ve``, the jump-frame strips and the probability-row figures).
 
@@ -16,7 +17,7 @@ is grafted in at random init), driving audio (``driving_audio_path``:
 audio-matched seed segment, the length clipped to the driving clip, the
 driving waveform as the output track), SuperSloMo at jumps
 (``interp_fn``, or one loaded from a found ``SuperSloMo.ckpt``, else the
-crossfade). Not yet: ``-daf Contrastive``, the device scan walk,
+crossfade). Not yet: ``-daf Contrastive``,
 multi-GPU and CAM videos (``cfg.vcam``). Where avtex would load a
 pretrained encoder file that it finds, the port raises
 ``NotImplementedError``.
@@ -167,14 +168,13 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     """
     from .server import TextureServer  # server.py imports build_model here
 
-    if walk_on_device:
-        raise _not_yet("the device scan walk", "Device scan walk")
     if out_dir is not None and cfg.vcam:
         raise _not_yet("CAM videos (-vcam)", "Contrastive extras")
     server = TextureServer.from_frames(
         cfg, frames_u8, fps, params, audio_path=audio_path, device=device,
         name=name, interp_fn=interp_fn, **encoder_kwargs)
-    out = server.synthesize(driving_audio=driving_audio_path)
+    out = server.synthesize(driving_audio=driving_audio_path,
+                            walk_on_device=walk_on_device)
     result = out["result"]
     stitched = {k: out[k] for k in ("frames", "frames_intp", "audio",
                                     "jump_count")}

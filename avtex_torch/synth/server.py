@@ -8,14 +8,15 @@ avtex/synth/server.py:36-198).
     c = server.synthesize(seconds=30, driving_audio="song.wav", alpha=0.5)
 
 The decoded frames, the source's log-mel examples and both embedding
-tables stay resident; each request is one host walk over the ``[L, L]``
-logits plus stitching, with SuperSloMo at jumps when interpolating:
-``interp_fn`` if given, else one loaded once per server from a checkpoint
-that ``find_slomo_checkpoint`` finds, else the crossfade. A driving-audio
-request featurises only its own wav: the scoring state of
-``cfg.da_feats`` (VGGish and the source's features) is built on the
-first such request and kept. ``TextureServer(cfg, video_path, params)``
-decodes the file first. The device walk raises until its slice lands.
+tables stay resident; each request is one walk over the ``[L, L]``
+logits (on the host by default, on the tables' device with
+``walk_on_device=True``) plus stitching, with SuperSloMo at jumps when
+interpolating: ``interp_fn`` if given, else one loaded once per server
+from a checkpoint that ``find_slomo_checkpoint`` finds, else the
+crossfade. A driving-audio request featurises only its own wav: the
+scoring state of ``cfg.da_feats`` (VGGish and the source's features) is
+built on the first such request and kept. ``TextureServer(cfg,
+video_path, params)`` decodes the file first.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ from avtex_torch.contrastive.segments import require_segments
 from avtex_torch.device import resolve_device
 
 from .embeddings import precompute_embeddings_from_video
-from .engine import num_synthesis_steps, synthesize_indices_host
+from .engine import (num_synthesis_steps, synthesize_indices,
+                     synthesize_indices_host)
 from .interp import InterpFn
-from .pipeline import _not_yet, build_model, make_audio_scorer
+from .pipeline import build_model, make_audio_scorer
 from .stitcher import stitch_texture
 
 
@@ -141,9 +143,11 @@ class TextureServer:
         Until the server has an ``interp_fn``, an interpolating request
         looks for a SuperSloMo checkpoint and loads it (kept for later
         requests), reporting the time as ``timings["interp_load_s"]``.
+        ``walk_on_device=True`` walks on the tables' device
+        (``synthesize_indices``, its noise from a ``torch.Generator``
+        seeded with ``seed``) instead of the host walk's
+        ``np.random.default_rng(seed)``.
         """
-        if walk_on_device:
-            raise _not_yet("the device scan walk", "Device scan walk")
         cfg = self.cfg
         seconds = cfg.new_video_length if seconds is None else seconds
         threshold = cfg.threshold if threshold is None else threshold
@@ -173,14 +177,20 @@ class TextureServer:
                                     self.S)
         if driving_audio is not None:
             audio_logits, seed_id = self._scorer()(drv_eg, steps)
-            audio_logits = audio_logits.cpu()
+            if not walk_on_device:
+                audio_logits = audio_logits.cpu()
             timings["audio_rows_s"] = time.perf_counter() - t0
         seed_id = min(seed_id, self.L - 1)
         t0 = time.perf_counter()
-        result = synthesize_indices_host(
-            self.q_table, self.t_table, steps, temp=cfg.temp,
-            threshold=threshold, alpha=alpha, audio_logits=audio_logits,
-            seed_id=seed_id, rng=np.random.default_rng(seed))
+        walk = dict(temp=cfg.temp, threshold=threshold, alpha=alpha,
+                    audio_logits=audio_logits, seed_id=seed_id)
+        if walk_on_device:
+            result = synthesize_indices(self.q_table, self.t_table, steps,
+                                        seed=seed, **walk)
+        else:
+            result = synthesize_indices_host(
+                self.q_table, self.t_table, steps,
+                rng=np.random.default_rng(seed), **walk)
         timings["walk_s"] = time.perf_counter() - t0
 
         out = {"result": result, "fps": self.fps, "frames": None,

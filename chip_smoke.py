@@ -77,9 +77,11 @@ non-zero, and no result line is printed):
    defaults (mode 1, RGB, fs 40, 5 sigmas, 900 steps), then one sigma in
    mode 2 and twice in mode 3, and one classic_transition_matrix call; the
    kernel launch count must equal the D1 calls; every P3_new finite,
-   non-negative, with a survivor in every row; every walk transition on a
-   nonzero entry of its row; the repeated run gives identical indices;
-   P3 from the kernel's D1 against P3 from the plain version's D1;
+   non-negative, with a survivor in every row; every walk transition (the
+   walk on the device) on a nonzero entry of its row; the repeated run
+   gives identical indices; P3 from the kernel's D1 against P3 from the
+   plain version's D1; per sigma the device walk's and the fetch's
+   seconds;
 8. fused_stage: slow res2 (SFBottleneck_0/2/4) and res3 (_6/8/10/12) of
    the full-width encoder on their real inputs, captured by hooks from one
    forward of the main path's 150 clips (BT = 1200 slices), with weights
@@ -111,7 +113,33 @@ non-zero, and no result line is printed):
    kernel), the file through convert_params into a norm="group"
    TextureServer whose tables are bit-identical to the in-memory
    model's, and a 10 s request; (g) model_type=2 on phase 5d's source
-   wav, 2 steps: finite losses, the VGGish weights moved.
+   wav, 2 steps: finite losses, the VGGish weights moved;
+10. (a) the contrastive device walk (synthesize_indices) on phase 5's
+   tables (L = 297, a 30 s request, threshold 0.5, seed segment 10),
+   without and with phase 5d's -daf Mel rows, and on seeded unit-norm
+   tables at L = 2048, without and with seeded rows: device-walk ms
+   against host-walk ms (both from the tables), every choice a survivor
+   of its step, a repeat with the same seed identical, the walk on the
+   CPU from the card's logits and noise with the same choices and
+   statistics within 1e-5, and the step loop captured in one CUDA graph
+   (capture and replay ms; a measurement, not a path of the port);
+   (c) -f ResNet and ResNet_VGGish features (random resnet18 at 112 px,
+   VGGish on phase 5d's source wav) of phase 7's N = 1800 frames:
+   pairwise_l2 normalized against its plain version at F = 512, 640 and
+   12800 (phase 6's gates; ms, plain, torch.cdist, bound, split plan,
+   device-time split), then run_classic_frames with each mode, one
+   sigma: 2 launches, every step on a nonzero entry; (d) the seven new
+   encoders (resnext50/101/152, densenet121/169, resnet18_2d/34_2d) at
+   full width in bf16: one synchronised forward of 8 clips of 15 x 224^2
+   (112^2 for the 2D archs) after a warm-up, ms and peak memory, finite
+   unit-norm embeddings, card against CPU in fp32 (TF32 off) on one clip
+   of 15 x 112^2 with cosine >= 0.9999; a TextureServer with -ea
+   resnext50 (load, embed, a 30 s request walked on the host and on the
+   device); one training step each of resnext50 and densenet121 after a
+   warm-up step at -bs 8 -negs 8: finite losses, ms, peak memory; (e)
+   the audio baselines through the library: audio_nearest_neighbour on
+   phase 5d's wavs on the card (each match within 1e-4 of the best fp64
+   cosine), the random walks and the shift.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -213,6 +241,14 @@ RESUME_TOL = 1e-3
 # cancellation, so single tensors part by up to 1e-2: the gate is on all
 # parameters together.
 CPU_WIDTH, CPU_SIZE, CPU_LR = 16, 64, 1e-3
+# Phase 10: the device walk's statistics (entropy, pos_prob) on the card
+# against the CPU on the same logits and noise (sums in other orders), and
+# the new encoders' fp32 embeddings on the card against the CPU (TF32 off;
+# cuDNN and oneDNN sum convolutions in other orders).
+WALK_RTOL = 1e-5
+ENC_COS = 0.9999
+NEW_ENCODERS = ("resnext50", "resnext101", "resnext152", "densenet121",
+                "densenet169", "resnet18_2d", "resnet34_2d")
 # device-time kinds of a training step's kernels, by name
 TRAIN_KINDS = (("conv", ("conv", "xmma", "cudnn", "wgrad", "dgrad", "fprop",
                          "sm90_", "sm80_")),
@@ -836,6 +872,7 @@ def main() -> int:
     if not np.array_equal(outs[0]["result"].indices,
                           outs[2]["result"].indices):
         raise AssertionError("a repeated request gave other indices")
+    tables = (server.q_table, server.t_table)  # phase 10 walks on them
     slomo_phase(server, requests[1], outs[1], fps)
     checkpoint_phase(server, cfg, embed)
 
@@ -859,7 +896,7 @@ def main() -> int:
     }]
     del server, outs
     torch.cuda.empty_cache()
-    kernels[0]["launches_audio_path"] = audio_phase(
+    kernels[0]["launches_audio_path"], audio = audio_phase(
         cfg, video, fps, n_batches, min(embed_times))
     torch.cuda.empty_cache()
 
@@ -867,6 +904,8 @@ def main() -> int:
     kernels.append(stage_phase(cfg, video, state, res, report))
     torch.cuda.empty_cache()
     train_phase(video, fps)
+    torch.cuda.empty_cache()
+    slice12_phase(tables, audio, video, fps, kernels[1])
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -1293,7 +1332,9 @@ def classic_phases(build_report: dict) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[7] classic path: {d1_calls} compute_d1 calls + 1 "
         f"classic_transition_matrix call, pairwise_l2 launches {launches}, "
-        f"peak device memory {peak:.2f} GiB")
+        f"peak device memory {peak:.2f} GiB; P3 walked on the device (the "
+        f"fetch: the walk and the sigmas; PR 10's host walk took 11-27 ms "
+        f"a sigma after a fetch of P3)")
     problems = []
     if launches != d1_calls + 1:
         problems.append(f"{launches} launches for {d1_calls + 1} D1 calls")
@@ -1303,11 +1344,12 @@ def classic_phases(build_report: dict) -> dict:
             f"sigma(s)")
         adv = rcfg.stride if rcfg.model_type == 2 else 0
         for sigma, e in out["sigma_results"].items():
-            t, p3 = e["timings"], e["p3_new"]
+            t, p3 = e["timings"], e["p3_new"].cpu().numpy()
             log(f"      sigma {sigma}: N={len(p3)} D1 {t['d1_s']:.4f} s, "
                 f"D2 {t['d2_s']:.4f} s, D3 {t['d3_s']:.4f} s "
-                f"({e['sweeps']} sweeps), fetch {t['fetch_s']:.4f} s, walk "
-                f"{t['walk_s']:.4f} s, bars {t['bars_s']:.4f} s, interp "
+                f"({e['sweeps']} sweeps), device walk {t['walk_s']:.4f} "
+                f"s, fetch {t['fetch_s']:.4f} s, bars {t['bars_s']:.4f} "
+                f"s, interp "
                 f"{t['interp_s']:.4f} s; {len(e['walk']) - 1} steps, "
                 f"{e['jump_count']} jumps, {len(e['frames'])} frames"
                 + (f" ({len(e['frames_intp'])} interpolated)"
@@ -1330,7 +1372,7 @@ def classic_phases(build_report: dict) -> dict:
              for e in results[r]["sigma_results"].values()]
     if not np.array_equal(*again):
         problems.append("a repeated run gave other indices")
-    staged = results["mode 1"]["sigma_results"][s0]["p3_new"]
+    staged = results["mode 1"]["sigma_results"][s0]["p3_new"].cpu().numpy()
     if not np.array_equal(fused, staged):
         problems.append("classic_transition_matrix differs from the "
                         "staged P3_new of run_classic_frames")
@@ -1898,9 +1940,10 @@ def vggish_flops(frames: int = 100, bands: int = 64) -> int:
 
 
 def audio_phase(cfg, video: np.ndarray, fps: int, n_batches: int,
-                m1_embed_s: float) -> int:
+                m1_embed_s: float):
     """Phase 5d: audio-conditioned synthesis at full width. Returns the
-    fused_conv1x1 launches of the model_type=2 server's first embed."""
+    fused_conv1x1 launches of the model_type=2 server's first embed, and
+    for phase 10 the -daf Mel rows of the 30 s request and both waves."""
     import dataclasses
     import os
     import tempfile
@@ -2091,6 +2134,8 @@ def audio_phase(cfg, video: np.ndarray, fps: int, n_batches: int,
         if not np.array_equal(r.indices, b["result"].indices):
             raise AssertionError(f"-daf {daf}: a repeated request gave "
                                  "other indices")
+    extras = {"mel_rows": rows, "source": (src_wave, src_sr),
+              "driving": (drv_wave, drv_sr)}
     del server
     torch.cuda.empty_cache()
 
@@ -2143,7 +2188,7 @@ def audio_phase(cfg, video: np.ndarray, fps: int, n_batches: int,
         raise AssertionError("the grafted VGGish differs from the file's")
     del server, direct
     tmp.cleanup()
-    return launches
+    return launches, extras
 
 
 def profile_embed(embed, wall_s: float, label: str = "",
@@ -2198,6 +2243,414 @@ def profile_embed(embed, wall_s: float, label: str = "",
         log(f"      op {ms:9.2f} ms {100 * ms / total:5.1f}% x{count:<4} "
             f"{key} {str(shapes[:2])[:90]}")
 
+
+
+# ---- phase 10 ------------------------------------------------------------ #
+
+def survivors_ok(logits: np.ndarray, rows, result, threshold: float,
+                 alpha: float = 0.5) -> bool:
+    """Every chosen id of a contrastive walk is a candidate of its step
+    and survives ``p >= max - threshold * max`` (recomputed in float64;
+    1e-6 of |max| slack for the fp32 rounding)."""
+    L = len(logits)
+    prev = result.seed_id
+    for s, nxt in enumerate(result.indices):
+        cand = np.ones(L, bool)
+        cand[prev] = prev == L - 1
+        p = np.where(cand, logits[prev], 0.0)
+        p = p / p.sum()
+        if rows is not None:
+            a = np.where(cand, rows[s], 0.0)
+            p = alpha * p + (1 - alpha) * a / a.sum()
+        mx = p[cand].max()
+        if not (cand[nxt] and p[nxt] >= mx - threshold * mx
+                - 1e-6 * abs(mx)):
+            return False
+        prev = int(nxt)
+    return True
+
+
+def walk_phase(label: str, q, t, steps: int, rows, threshold: float,
+               seed_id: int, temp: float = 0.1) -> dict:
+    """Phase 10 (a): the contrastive device walk on tables ``q``, ``t``
+    against the host walk, its gates, and the step loop captured in a CUDA
+    graph (a measurement: the walk runs eagerly)."""
+    import torch
+    from avtex_torch.synth.engine import (candidate_rows, candidate_scores,
+                                          synthesize_indices,
+                                          synthesize_indices_host,
+                                          walk_logits, walk_steps)
+    L = q.shape[0]
+    kw = dict(threshold=threshold, alpha=0.5, seed_id=seed_id)
+
+    def best(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    dev_ms_ = best(lambda: synthesize_indices(q, t, steps, temp,
+                                              audio_logits=rows, seed=1,
+                                              **kw))
+    rows_host = None if rows is None else rows.cpu()
+    host_ms = best(lambda: synthesize_indices_host(
+        q, t, steps, temp, audio_logits=rows_host,
+        rng=np.random.default_rng(1), **kw))
+    with fp32_exact():
+        logits = torch.matmul(q.float(), t.float().t()) / temp
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    noise = torch.rand((steps, L), generator=gen, device="cuda")
+    card = walk_logits(logits, steps, audio_logits=rows, seed=1, **kw)
+    given = walk_logits(logits, steps, audio_logits=rows, noise=noise, **kw)
+    again = walk_logits(logits, steps, audio_logits=rows, seed=1, **kw)
+    cpu = walk_logits(logits.cpu(), steps, audio_logits=rows_host,
+                      noise=noise.cpu(), **kw)
+    ok_surv = survivors_ok(logits.double().cpu().numpy(),
+                           None if rows is None else
+                           rows.double().cpu().numpy(), card, threshold)
+    same_cpu = (np.array_equal(card.indices, cpu.indices)
+                and np.array_equal(card.nonzero_counts, cpu.nonzero_counts)
+                and np.array_equal(card.greedy_ids, cpu.greedy_ids))
+    stat_err = max(
+        float(np.max(np.abs(card.entropies - cpu.entropies)
+                     / np.maximum(np.abs(cpu.entropies), 1e-30))),
+        float(np.max(np.abs(card.pos_prob - cpu.pos_prob)
+                     / np.maximum(np.abs(cpu.pos_prob), 1e-30))))
+    ok = (ok_surv and same_cpu and stat_err <= WALK_RTOL
+          and np.array_equal(card.indices, again.indices)
+          and np.array_equal(card.indices, given.indices)
+          and len(card.indices) == steps)
+
+    # the step loop in one CUDA graph: capture once, replay
+    graph = {}
+    try:
+        cand = candidate_rows(L, logits.device)
+        video_p = candidate_scores(logits, cand,
+                                   None if rows is None else 0.5)
+        q0 = torch.tensor(seed_id, dtype=torch.int64, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            walk_steps(video_p, cand, noise, q0, threshold, rows, 0.5)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(g):
+            out = walk_steps(video_p, cand, noise, q0, threshold, rows, 0.5)
+        torch.cuda.synchronize()
+        graph["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        graph["replay_ms"] = best(lambda: (g.replay(),
+                                           torch.cuda.synchronize()))
+        graph["same"] = bool(np.array_equal(out.cpu().numpy(),
+                                            given.indices))
+        del g
+    except Exception as e:  # a measurement, not a path of the port
+        graph["error"] = f"{type(e).__name__}: {e}"
+    log(f"    (a) {label}: L={L}, {steps} steps, threshold {threshold}, "
+        f"seed segment {seed_id}"
+        + (", -daf Mel rows" if rows is not None else "")
+        + f": device walk {dev_ms_:.2f} ms against the host walk "
+        f"{host_ms:.2f} ms (both from the tables, host to host, best of "
+        f"3); {int(card.jumps[1:].sum())} jumps; every choice a survivor "
+        f"{ok_surv}; a repeat identical "
+        f"{np.array_equal(card.indices, again.indices)}; the CPU on the "
+        f"card's logits and noise: same choices {same_cpu}, statistics "
+        f"within {stat_err:.3g} (tol {WALK_RTOL:g}); the loop in a CUDA "
+        f"graph: "
+        + (f"capture {graph['capture_ms']:.2f} ms, replay "
+           f"{graph['replay_ms']:.2f} ms, same choices {graph['same']}"
+           if "error" not in graph else graph["error"]))
+    if not ok:
+        raise AssertionError(f"device walk {label} failed its gates")
+    return {"L": L, "steps": steps, "device_ms": dev_ms_,
+            "host_ms": host_ms, **graph}
+
+
+def encoder_phase(video: np.ndarray, fps: int) -> dict:
+    """Phase 10 (d): the seven new encoders at full width."""
+    import torch
+    from avtex_torch.config import Config
+    from avtex_torch.contrastive.model import (ContrastiveTextures,
+                                               SegmentEmbedder)
+    from avtex_torch.data.pipeline import SegmentBatches
+    from avtex_torch.data.preprocess import preprocess_clip
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.synth.pipeline import flax_style_init
+    from avtex_torch.train import create_state, make_train_step
+    from avtex_torch.train.loop import step_generator
+
+    out = {}
+    W, S = 15, 6
+    L = (len(video) - W) // S
+    idx = (np.arange(8)[:, None] * (L // 8) * S + np.arange(W)[None])
+    video_dev = torch.from_numpy(video).cuda()
+    log(f"    (d) the seven new encoders, bf16, norm='group', seeded "
+        f"flax-style weights, one synchronised forward of 8 clips of "
+        f"{W} frames (224^2; the 2D archs 112^2) after a warm-up; card vs "
+        f"CPU in fp32 (TF32 off) on one clip of {W} x 112^2, cosine >= "
+        f"{ENC_COS}")
+    for arch in NEW_ENCODERS:
+        size = 112 if arch.endswith("_2d") else 224
+        emb = SegmentEmbedder(arch, dtype=torch.float32)
+        state = flax_style_init(emb, 0)
+        bf = SegmentEmbedder(arch, dtype=torch.bfloat16)
+        bf.load_state_dict(state)
+        bf = bf.cuda().eval()
+        clips = preprocess_clip(video_dev[torch.from_numpy(idx).cuda()],
+                                size)
+        with torch.inference_mode():
+            bf(clips)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            y = bf(clips)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        norms = torch.linalg.vector_norm(y.float(), dim=-1)
+        del bf, clips
+        emb.load_state_dict(state)
+        small = preprocess_clip(torch.from_numpy(video[:W][None]), 112)
+        with torch.inference_mode():
+            want = emb.eval()(small)
+            gpu = emb.cuda()
+            with fp32_exact():
+                got = gpu(small.cuda()).cpu()
+        cos = float(torch.nn.functional.cosine_similarity(got, want,
+                                                          dim=-1).min())
+        del emb, gpu
+        torch.cuda.empty_cache()
+        log(f"      {arch}: feat_dim {y.shape[1]}, {ms:.1f} ms a forward "
+            f"of 8 clips, peak {peak:.2f} GiB; |emb| - 1 max "
+            f"{float((norms - 1).abs().max()):.2g}; card vs CPU cosine "
+            f"{cos:.7f}")
+        if (y.shape[0] != 8 or not torch.isfinite(y).all()
+                or float((norms - 1).abs().max()) > 1e-3 or cos < ENC_COS):
+            raise AssertionError(f"encoder {arch} failed its gates")
+        out[arch] = {"ms": ms, "peak_gib": peak, "cos_cpu": cos}
+    del video_dev
+
+    # a server and a request with -ea resnext50
+    cfg = Config(enc_arch="resnext50", mini_batchsize=64, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = TextureServer.from_frames(cfg, video, float(fps),
+                                       device="cuda")
+    load_s = time.perf_counter() - t0
+    reqs = {}
+    for dev_walk in (False, True):
+        o = server.synthesize(seconds=30, seed=1, walk_on_device=dev_walk)
+        reqs[dev_walk] = o
+    norms = torch.linalg.vector_norm(server.q_table, dim=-1)
+    log(f"      TextureServer -ea resnext50: load {load_s:.2f} s (init + "
+        f"both tables, {server.L} segments at batch 64), embed "
+        f"{server.embed_s:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; a 30 s "
+        f"request: host walk {reqs[False]['timings']['walk_s'] * 1e3:.2f} "
+        f"ms, device walk {reqs[True]['timings']['walk_s'] * 1e3:.2f} ms, "
+        f"stitch {reqs[False]['timings']['stitch_s']:.3f} s, "
+        f"{len(reqs[False]['frames'])} frames")
+    if (tuple(server.q_table.shape) != (server.L, 2048)
+            or float((norms - 1).abs().max()) > 1e-3
+            or any(len(o["frames"]) < 30 * fps for o in reqs.values())):
+        raise AssertionError("the resnext50 server failed its gates")
+    out["server_resnext50"] = {"load_s": load_s, "embed_s": server.embed_s}
+    del server, reqs
+    torch.cuda.empty_cache()
+
+    # one training step each, after a warm-up step
+    for arch in ("resnext50", "densenet121"):
+        tcfg = Config(enc_arch=arch, batch_size=TRAIN_BS, n_negs=TRAIN_NEGS,
+                      seed=0).derive_geometry(fps)
+        data = SegmentBatches(video, tcfg.window, tcfg.train_stride,
+                              n_negs=tcfg.n_negs, batch_size=tcfg.batch_size,
+                              seed=0, drop_last=True)
+        it = data.epoch(0)
+        torch.cuda.reset_peak_memory_stats()
+        model = ContrastiveTextures(arch, 1, tcfg.temp, norm="group",
+                                    remat=True).cuda()
+        state = create_state(model, tcfg, len(data))
+        step = make_train_step(model, tcfg.img_size, False, tcfg.augment)
+        losses, ms = [], []
+        for k in range(2):
+            batch = next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, step_generator(0, k))
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        clips = TRAIN_BS * (2 + TRAIN_NEGS)
+        log(f"      training {arch} at -bs {TRAIN_BS} -negs {TRAIN_NEGS} "
+            f"({clips} clips of {tcfg.window} x {tcfg.img_size}^2), bf16, "
+            f"fp32 master, remat where the arch has it: losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; the first step "
+            f"{ms[0]:.0f} ms, the second {ms[1]:.0f} ms, peak {peak:.2f} GiB")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"training {arch}: a loss is not finite")
+        out[f"train_{arch}"] = {"step_ms": ms[1], "peak_gib": peak}
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice12_phase(tables: tuple, audio: dict, video: np.ndarray,
+                  fps: int, pairwise_entry: dict) -> None:
+    """Phase 10: the device walks, the classic ResNet features, the seven
+    new encoders and the audio baselines (module docstring)."""
+    import dataclasses
+    import torch
+    from avtex_torch.audio import waveform_to_examples
+    from avtex_torch.baselines import (audio_nearest_neighbour,
+                                       random_segment_walk,
+                                       random_sequential_walk, shift_audio)
+    from avtex_torch.classic import frame_features, run_classic_frames
+    from avtex_torch.config import ClassicConfig
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.synth.engine import num_synthesis_steps
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    log(f"[10] the device walks, classic ResNet features, the seven new "
+        f"encoders, the audio baselines ({smi})")
+
+    # ---- (a) the contrastive device walk ------------------------------- #
+    q, t = tables
+    steps = num_synthesis_steps(30 * fps, 15, 6)
+    walks = [walk_phase("phase 5's tables, a 30 s request", q, t, steps,
+                        None, 0.5, 10)]
+    rows = audio["mel_rows"]
+    walks.append(walk_phase("phase 5's tables, phase 5d's 30 s driving "
+                            "clip", q, t, len(rows), rows, 0.5, 10))
+    g = torch.Generator(device="cuda").manual_seed(10)
+    big = torch.randn((2, 2048, 2304), generator=g, device="cuda").abs()
+    big = big / torch.linalg.vector_norm(big, dim=-1, keepdim=True)
+    walks.append(walk_phase("seeded unit-norm tables", big[0], big[1],
+                            steps, None, 0.5, 10))
+    brows = torch.rand((steps, 2048), generator=g, device="cuda") / 0.1
+    walks.append(walk_phase("seeded unit-norm tables with seeded rows",
+                            big[0], big[1], steps, brows, 0.5, 10))
+    pairwise_entry["device_walk"] = walks
+    del big, brows
+
+    # ---- (c) the classic ResNet features ------------------------------- #
+    cvideo = synthetic_video(CLASSIC_SECONDS, fps)
+    src_wave, src_sr = audio["source"]
+    ex = waveform_to_examples(src_wave, src_sr, device="cuda")
+    feats = {}
+    for mode in ("ResNet", "ResNet_VGGish"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats[mode], _ = frame_features(mode, cvideo, "cuda", ex, 40, 4)
+        torch.cuda.synchronize()
+        log(f"    (c) -f {mode}: features {tuple(feats[mode].shape)} of "
+            f"the {len(cvideo)} frames in {time.perf_counter() - t0:.3f} s "
+            f"(random resnet18 at 112 px"
+            + (", VGGish on the source wav)" if mode != "ResNet" else ")"))
+    checks = []
+    for f_label, x in (("ResNet", feats["ResNet"]),
+                       ("F = 640 (ResNet + 128 VGGish columns)",
+                        feats["ResNet_VGGish"][:, :640].contiguous()),
+                       ("ResNet_VGGish", feats["ResNet_VGGish"])):
+        r = check_pairwise(x, True, True)
+        checks.append(r)
+        log(f"      pairwise_l2 normalized at N={r['N']} F={r['F']} "
+            f"({f_label}): S={r['splits']} ({r['blocks']} blocks, "
+            f"{r['blocks_per_sm']} per SM), sq ratio {r['sq_ratio']:.3g} "
+            f"(tol {SQ_TOL:g}; kernel vs fp64 {r['kernel_vs_fp64']:.3g}, "
+            f"plain vs fp64 {r['plain_vs_fp64']:.3g}), diagonal 0 "
+            f"{r['diag_zero']}, symmetric {r['symmetric']}, repeat "
+            f"{r['repeat']}; ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+            f"cdist {r['library_ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}); device time: Gram {r['gram_ms']:.4f}, "
+            f"epilogue {r['epilogue_ms']:.4f}, row norms "
+            f"{r['other_device_ms']:.4f}")
+    if not all(r["ok"] for r in checks):
+        raise AssertionError("pairwise_l2 disagrees with its plain version "
+                             "on the ResNet features")
+    r512 = checks[0]
+    pairwise_entry["f512"] = {k: r512[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits",
+        "gram_ms", "epilogue_ms", "other_device_ms", "max_abs_err")}
+    pairwise_entry["f12800"] = {k: checks[2][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits")}
+    pairwise_entry["max_sq_ratio"] = max(pairwise_entry["max_sq_ratio"],
+                                         *(c["sq_ratio"] for c in checks))
+    del feats
+    base = dataclasses.replace(ClassicConfig(), sigmas=(4.45,))
+    reset_launch_counts()
+    results = {}
+    for mode in ("ResNet", "ResNet_VGGish"):
+        t0 = time.perf_counter()
+        results[mode] = run_classic_frames(
+            dataclasses.replace(base, feats=mode), cvideo, float(fps),
+            audio=src_wave, sample_rate=src_sr, device="cuda")
+        results[mode]["wall_s"] = time.perf_counter() - t0
+    launches = launch_counts()["pairwise_l2"]
+    pairwise_entry["launches_resnet_path"] = launches
+    for mode, res in results.items():
+        (e,) = res["sigma_results"].values()
+        tm, p3 = e["timings"], e["p3_new"].cpu().numpy()
+        good = check_walk(p3, e["walk"], 0)
+        log(f"      run_classic_frames -f {mode}, one sigma: "
+            f"{res['wall_s']:.2f} s; D1 {tm['d1_s']:.4f} s, D3 "
+            f"{tm['d3_s']:.4f} s, walk {tm['walk_s']:.4f} s, fetch "
+            f"{tm['fetch_s']:.4f} s; {e['jump_count']} jumps; every step "
+            f"on a nonzero entry {good}")
+        if not (good and np.isfinite(p3).all()
+                and (p3.max(axis=1) > 0).all()):
+            raise AssertionError(f"-f {mode}: bad P3 or walk")
+    log(f"      pairwise_l2 launches on the two runs: {launches}")
+    if launches != 2:
+        raise AssertionError(f"{launches} pairwise_l2 launches for 2 D1 "
+                             "calls")
+    del results, cvideo
+    torch.cuda.empty_cache()
+
+    # ---- (d) the seven new encoders ------------------------------------ #
+    pairwise_entry["encoders"] = encoder_phase(video, fps)
+
+    # ---- (e) the audio baselines --------------------------------------- #
+    drv_wave, drv_sr = audio["driving"]
+    W, S = 15, 6
+    L = (len(video) - W) // S
+    t0 = time.perf_counter()
+    src_eg = waveform_to_examples(src_wave, src_sr, device="cuda")
+    drv_eg = waveform_to_examples(drv_wave, drv_sr, device="cuda")
+    ids, segs = audio_nearest_neighbour(drv_eg, src_eg, W, S, 30 * fps)
+    nn_s = time.perf_counter() - t0
+    s64 = src_eg.reshape(len(src_eg), -1).double().cpu()
+    d64 = drv_eg.reshape(len(drv_eg), -1).double().cpu()
+    sims = (d64 / d64.norm(dim=1, keepdim=True)) @ (
+        s64 / s64.norm(dim=1, keepdim=True)).t()
+    got = sims[torch.arange(len(segs)) % len(d64),
+               torch.from_numpy(segs)]
+    gap = float((sims.amax(1)[torch.arange(len(segs)) % len(d64)]
+                 - got).max())
+    t0 = time.perf_counter()
+    seq = random_sequential_walk(L, W, S, 30 * fps, 0)
+    rseq, rsegs = random_segment_walk(L, W, S, 30 * fps, 0)
+    shifted, secs = shift_audio(src_wave, src_sr, seed=0)
+    rand_s = time.perf_counter() - t0
+    log(f"    (e) audio_nearest_neighbour on phase 5d's wavs ("
+        f"{len(drv_eg)} driving, {len(src_eg)} source examples, on the "
+        f"card): {len(segs)} matches, {len(ids)} frames (largest id "
+        f"{int(ids.max())}: avtex matches every source example, not only "
+        f"the {L} segments) in {nn_s:.3f} s (log-mel included); each "
+        f"match within {gap:.2g} of the best "
+        f"fp64 cosine; random: {len(seq)} frames, random_segment: "
+        f"{len(rseq)} frames ({len(rsegs)} blocks), shift {secs:.0f} s: "
+        f"{rand_s * 1e3:.2f} ms together")
+    if (gap > 1e-4 or len(ids) < 30 * fps or segs.max() >= len(src_eg)
+            or len(seq) < 30 * fps or rseq.max() >= len(video)
+            or len(shifted) != len(src_wave)):
+        raise AssertionError("audio baselines failed their gates")
+    log(f"    phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

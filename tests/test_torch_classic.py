@@ -5,9 +5,14 @@ avtex's (avtex/classic/), on the same numpy inputs.
   probabilities: fp32 on both sides, summed in other orders, so rtol 1e-5;
 - the host walk, the frame-id expansion, the interpolated track and the
   position bars: bit-exact;
-- ``run_classic`` end to end against avtex's with avtex's device walk
-  replaced by the shared host walk: identical walks, frame ids, jump
-  counts and output names, sigmas within rtol 1e-5.
+- ``run_classic`` end to end against avtex's, both walking on the device
+  with avtex's noise (the port's walk is fed the draws of avtex's
+  ``jax.random.key(cfg.seed + i)``): identical walks, frame ids, jump
+  counts and output names, sigmas within rtol 1e-5; with ``-f ResNet``
+  and ``ResNet_VGGish`` too, both given the same ResNet-18 and VGGish
+  weights;
+- the ResNet feature modes with given weights: features within 1e-4;
+  ``compute_paudio`` within 1e-6.
 
 Where a threshold decides (``threshold_rows``), the inputs are checked to
 hold no entry within 1e-5 relative of the cutoff, so rounding cannot flip
@@ -17,6 +22,7 @@ an entry between the two packages.
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +33,7 @@ from avtex.classic import sampler as j_sampler
 from avtex_torch import classic as tc
 from avtex_torch.config import ClassicConfig
 from avtex_torch.synth.stitcher import crossfade
+from test_torch_device_walk import _avtex_noise
 
 torch.set_num_threads(1)
 
@@ -208,9 +215,110 @@ def test_classic_config_defaults_equal_avtex():
             == dataclasses.asdict(JaxClassicConfig()))
 
 
-def test_resnet_features_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.frame_features("ResNet", np.zeros((3, 4, 4, 3), np.uint8), "cpu")
+def _resnet18_pair(seed=0):
+    """avtex's resnet2d18 (module, fp32 params with norms moved off
+    ones/zeros) and the port's with the same weights."""
+    from avtex.nn.resnet2d import resnet2d18 as j_resnet2d18
+    from avtex_torch.convert import convert_params
+    from avtex_torch.nn.resnet2d import resnet2d18
+    from test_torch_slowfast import _perturbed_norms
+    m = j_resnet2d18(dtype=jnp.float32)
+    params = _perturbed_norms(jax.jit(m.init)(
+        jax.random.key(seed), jnp.zeros((1, 112, 112, 3))))
+    enc = resnet2d18(dtype=torch.float32)
+    holder = torch.nn.Module()
+    holder.add_module("enc", enc)
+    holder.load_state_dict(convert_params({"enc": params["params"]}, holder))
+    return m, params, enc.eval()
+
+
+def test_resnet_features_match_avtex():
+    """Per-frame ResNet-18 features at 112 px with given weights, a tail
+    batch padded and trimmed (70 frames in batches of 32)."""
+    from avtex.classic.features import resnet_features as j_resnet_features
+    vid = _video(t=70, h=40, w=52, seed=3)
+    m, params, enc = _resnet18_pair()
+    want, j_norm = j_resnet_features(vid, module=m, params=params,
+                                     batch_size=32)
+    got, norm = tc.resnet_features(vid, "cpu", module=enc, batch_size=32)
+    assert norm and j_norm and got.shape == (70, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _vggish_file(tmp_path):
+    """A seeded pytorch_vggish.pth under the reference's names."""
+    from avtex_torch.checkpoints import vggish_reference_state
+    from avtex_torch.nn.vggish import VGGish
+    from avtex_torch.synth.pipeline import flax_style_init
+    vg = VGGish(dtype=torch.float32)
+    vg.load_state_dict(flax_style_init(vg, 5))
+    path = str(tmp_path / "pytorch_vggish.pth")
+    torch.save(vggish_reference_state(vg), path)
+    return path
+
+
+def test_resnet_vggish_features_match_avtex(monkeypatch, tmp_path):
+    """ResNet features + the VGGish row min(i // stride, len - 1) per
+    frame, VGGish loaded from the same pytorch_vggish.pth on both sides
+    (bf16, as avtex runs it: rows within 2e-2 of their scale)."""
+    import avtex.classic.features as j_features
+    from avtex.audio.mel import waveform_to_examples as j_examples
+    from avtex_torch.audio import waveform_to_examples
+    monkeypatch.setenv("AVTEX_VGGISH_CKPT", _vggish_file(tmp_path))
+    vid = _video(t=30, h=40, w=40, seed=4)
+    m, params, enc = _resnet18_pair()
+    orig = j_features.resnet_features
+    monkeypatch.setattr(j_features, "resnet_features",
+                        lambda frames, img_size=112: orig(
+                            frames, module=m, params=params))
+    wav = np.random.default_rng(2).standard_normal(22050 * 3) * 0.1
+    want, _ = j_features.resnet_vggish_features(
+        vid, np.asarray(j_examples(wav, 22050)), window=8, stride=4)
+    got, norm = tc.resnet_vggish_features(
+        vid, waveform_to_examples(wav, 22050, device="cpu"), 8, 4, "cpu",
+        module=enc)
+    want = np.asarray(want)
+    assert norm and got.shape == want.shape == (30, 512 + 12288)
+    np.testing.assert_allclose(got[:, :512].numpy(), want[:, :512],
+                               rtol=1e-4, atol=1e-4)
+    scale = np.abs(want[:, 512:]).max()
+    assert float(np.abs(got[:, 512:].numpy() - want[:, 512:]).max()) \
+        <= 2e-2 * scale
+    # frame i carries example min(i // 4, len - 1)
+    rows = got[:, 512:].numpy()
+    np.testing.assert_array_equal(rows[0], rows[3])
+    assert not np.array_equal(rows[3], rows[4])
+
+
+def test_resnet_features_refuse_a_found_checkpoint_and_warn_without(
+        monkeypatch, tmp_path, capsys):
+    """No encoder file: avtex's loud warning and seeded random weights
+    (the same features twice); a found file raises, as for the other
+    encoders."""
+    vid = _video(t=5, h=24, w=24)
+    monkeypatch.delenv("AVTEX_ENCODER_CKPT", raising=False)
+    monkeypatch.chdir(tmp_path)
+    a, _ = tc.frame_features("ResNet", vid, "cpu")
+    assert "no pretrained resnet18" in capsys.readouterr().err
+    b, _ = tc.frame_features("ResNet", vid, "cpu")
+    assert a.shape == (5, 512) and torch.equal(a, b)
+    ckpt = tmp_path / "resnet18-imagenet.pth"
+    ckpt.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="resnet18-imagenet.pth"):
+        tc.frame_features("ResNet_VGGish", vid, "cpu")
+
+
+def test_compute_paudio_matches_avtex():
+    from avtex.classic.paudio import compute_paudio as j_paudio
+    g = np.random.default_rng(0)
+    seg = g.standard_normal((40, 128)).astype(np.float32)
+    for drv in (g.standard_normal(128).astype(np.float32),
+                g.standard_normal((1, 128)).astype(np.float32)):
+        got = tc.compute_paudio(torch.from_numpy(drv), torch.from_numpy(seg))
+        want = np.asarray(j_paudio(jnp.asarray(drv), jnp.asarray(seg)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert (got.numpy() < 0).any()  # no shift: negative weights stay
 
 
 def test_entry_point_without_device_raises_on_cpu_only_machine(monkeypatch):
@@ -236,23 +344,24 @@ def clip(tmp_path_factory):
     return src, frames, fps
 
 
-def _host_walk_for_avtex(p, start, num_steps, rng, advance=0):
-    """avtex's device walk replaced by the host walk, seeded with the
-    integer avtex's run_classic gave ``jax.random.key``."""
-    seed = int(np.asarray(jax.random.key_data(rng))[-1])
-    return j_sampler.sample_texture_walk_host(
-        np.asarray(p), start, num_steps, np.random.default_rng(seed),
-        advance=advance)
+def _walk_on_avtex_noise(p, start, num_steps, generator=None, advance=0):
+    """The port's device walk fed the draws avtex's run_classic makes from
+    ``jax.random.key(seed)``, the seed the port's driver gave its
+    generator."""
+    noise = _avtex_noise(generator.initial_seed(), num_steps, p.shape[1])
+    return tc.sample_texture_walk(p, start, num_steps, noise=noise,
+                                  advance=advance)
 
 
 @pytest.mark.parametrize("mode", [1, 2, 3])
 def test_run_classic_matches_avtex(monkeypatch, tmp_path, clip, mode):
     import avtex.classic.driver as j_driver
+    import avtex_torch.classic.driver as t_driver
     from avtex.config import ClassicConfig as JaxClassicConfig
 
     src, frames, fps = clip
-    monkeypatch.setattr(j_driver, "sample_texture_walk",
-                        _host_walk_for_avtex)
+    monkeypatch.setenv("AVTEX_WALK_AOT", "0")
+    monkeypatch.setattr(t_driver, "sample_texture_walk", _walk_on_avtex_noise)
     common = dict(model_type=mode, feats="RGB", sigmas=(4.5,),
                   new_video_length=2, SF=3, filter_size=8, seed=3)
     # no entry of P3 within rounding of the threshold's cutoff
@@ -281,6 +390,60 @@ def test_run_classic_matches_avtex(monkeypatch, tmp_path, clip, mode):
             == {k: os.path.basename(v) for k, v in w["paths"].items()})
     assert all(os.path.exists(v) for v in g["paths"].values())
     assert ("texture_interp" in g["paths"]) == (mode == 1)
+
+
+@pytest.mark.parametrize("feats", ["ResNet", "ResNet_VGGish"])
+def test_run_classic_resnet_features_match_avtex(monkeypatch, tmp_path, clip,
+                                                 feats):
+    """``-f ResNet`` / ``ResNet_VGGish`` end to end, both packages given the
+    same ResNet-18 and (from one pytorch_vggish.pth, in fp32) VGGish
+    weights, the port walking on avtex's noise."""
+    import functools
+    import avtex.classic.driver as j_driver
+    import avtex.classic.features as j_features
+    import avtex.nn.vggish as j_vggish
+    import avtex_torch.classic.driver as t_driver
+    import avtex_torch.classic.features as t_features
+    import avtex_torch.nn.vggish as t_vggish
+    from avtex.config import ClassicConfig as JaxClassicConfig
+    from avtex.media import write_wav
+
+    src, frames, fps = clip
+    wav = str(tmp_path / "clip.wav")
+    g = np.random.default_rng(1)
+    tones = np.repeat(g.uniform(200, 3000, 16), 22050 // 4)
+    write_wav(wav, 0.3 * np.sin(2 * np.pi * np.cumsum(tones) / 22050),
+              22050)
+    monkeypatch.setenv("AVTEX_WALK_AOT", "0")
+    monkeypatch.setenv("AVTEX_VGGISH_CKPT", _vggish_file(tmp_path))
+    m, params, enc = _resnet18_pair()
+    orig = j_features.resnet_features
+
+    def given(frames, img_size=112):
+        return orig(frames, module=m, params=params, img_size=img_size)
+    monkeypatch.setattr(j_features, "resnet_features", given)
+    monkeypatch.setattr(j_driver, "resnet_features", given)
+    monkeypatch.setattr(j_vggish, "VGGish",
+                        functools.partial(j_vggish.VGGish,
+                                          dtype=jnp.float32))
+    monkeypatch.setattr(t_features, "_random_resnet18", lambda device: enc)
+    monkeypatch.setattr(t_vggish, "VGGish",
+                        functools.partial(t_vggish.VGGish,
+                                          dtype=torch.float32))
+    monkeypatch.setattr(t_driver, "sample_texture_walk", _walk_on_avtex_noise)
+    common = dict(model_type=1, feats=feats, sigmas=(4.5,),
+                  new_video_length=2, SF=3, filter_size=8, seed=3)
+    want = j_driver.run_classic(JaxClassicConfig(**common), src,
+                                audio_path=wav,
+                                out_dir=str(tmp_path / "avtex"),
+                                interp_fn=crossfade)
+    got = tc.run_classic(ClassicConfig(**common), src, audio_path=wav,
+                         out_dir=str(tmp_path / "port"), interp_fn=crossfade,
+                         device="cpu")
+    (w,), (g,) = want["sigma_results"].values(), got["sigma_results"].values()
+    np.testing.assert_array_equal(g["walk"], np.asarray(w["walk"]))
+    assert g["jump_count"] == w["jump_count"] > 0
+    np.testing.assert_allclose(g["sigmas"], w["sigmas"], rtol=1e-4)
 
 
 def test_run_classic_frames_returns_frames_without_out_dir(clip):

@@ -651,3 +651,47 @@ def test_driving_audio_request_on_the_card(cuda, tmp_path):
         assert a["sample_rate"] == 44100
         np.testing.assert_array_equal(a["audio"], read_wav(drv)[0])
         assert len(a["frames"]) < 10 * 24  # the 3 s clip sets the length
+
+
+@pytest.mark.parametrize("audio", [False, True])
+def test_device_walk_on_the_card_matches_the_cpu(cuda, audio):
+    """The contrastive walk on the card and on the CPU from the same
+    logits and noise: the same choices, statistics within rtol 1e-5 (sums
+    in other orders)."""
+    import numpy as np
+    from avtex_torch.synth.engine import walk_logits
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(300, 64, generator=g).abs()
+    q = q / q.norm(dim=1, keepdim=True)
+    logits = (q @ q.roll(1, 0).t()) / 0.1
+    noise = torch.rand(120, 300, generator=g)
+    rows = torch.rand(120, 300, generator=g) / 0.1 if audio else None
+    kw = dict(threshold=0.3, seed_id=5, noise=noise)
+    cpu = walk_logits(logits, 120, audio_logits=rows, **kw)
+    card = walk_logits(logits.to(cuda), 120, audio_logits=None if rows is None
+                       else rows.to(cuda), **kw)
+    for key in ("indices", "jumps", "nonzero_counts", "greedy_ids"):
+        np.testing.assert_array_equal(getattr(card, key), getattr(cpu, key))
+    np.testing.assert_allclose(card.entropies, cpu.entropies, rtol=1e-5)
+    np.testing.assert_allclose(card.pos_prob, cpu.pos_prob, rtol=1e-5)
+
+
+@pytest.mark.parametrize("advance", [0, 4])
+def test_classic_walk_on_the_card_matches_the_cpu(cuda, advance):
+    from avtex_torch.classic import sample_texture_walk
+    g = torch.Generator(device="cpu").manual_seed(4)
+    p = torch.rand(500, 500, generator=g)
+    p = torch.where(p > 0.97, p, 0.0)
+    p[torch.arange(499), torch.arange(1, 500)] = 1.0
+    p[499, 0] = 1.0
+    noise = torch.rand(400, 500, generator=g)
+    cpu = sample_texture_walk(p, 7, 400, noise=noise, advance=advance)
+    card = sample_texture_walk(p.to(cuda), 7, 400, noise=noise,
+                               advance=advance)
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1].cpu(), cpu[1])
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a = sample_texture_walk(p.to(cuda), 7, 50, generator=gen)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b = sample_texture_walk(p.to(cuda), 7, 50, generator=gen)
+    assert torch.equal(a[0], b[0]) and a[0].device.type == "cuda"

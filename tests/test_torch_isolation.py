@@ -29,7 +29,13 @@ assert not bad, bad
 for name in ("avtex_torch.audio.mel", "avtex_torch.audio.params",
              "avtex_torch.nn.vggish", "avtex_torch.train.loop",
              "avtex_torch.data.pipeline", "avtex_torch.contrastive.infonce",
-             "avtex_torch.obs.meters"):
+             "avtex_torch.obs.meters", "avtex_torch.nn.resnext3d",
+             "avtex_torch.nn.densenet3d", "avtex_torch.nn.resnet2d",
+             "avtex_torch.classic.paudio", "avtex_torch.utils.batching",
+             "avtex_torch.baselines.audio_nn",
+             "avtex_torch.baselines.random_walks",
+             "avtex_torch.baselines.shift",
+             "avtex_torch.cli.baselines_main"):
     assert name in names, name
 """
 

@@ -69,6 +69,15 @@ def test_classic_path_shape_fills_whole_waves():
     assert _split_plan(1800, 150528, 132, 2) * _tiles(1800) == 1320
 
 
+@pytest.mark.parametrize("f,want", [(512, 1), (640, 1), (12800, 11)])
+def test_classic_resnet_feature_shapes(f, want):
+    """-f ResNet (F = 512: 32 slabs, exactly MIN_SPLIT_SLABS, so no split;
+    one wave of 120 blocks on an H100) and ResNet_VGGish (F = 512 + 12288:
+    the RGB path's 11 splits) at N = 1800."""
+    assert -(-f // pairwise.SLAB) >= pairwise.MIN_SPLIT_SLABS
+    assert _split_plan(1800, f, 132, 2) == want
+
+
 @pytest.mark.parametrize("sms,bps", CARDS)
 def test_plan_fills_the_last_wave_best_and_bounds_the_workspace(sms, bps):
     wave = sms * bps

@@ -68,7 +68,7 @@ def test_registry_builds_what_avtex_builds(arch):
     module, dim, kind = encoders.build_encoder(arch, dtype=torch.float32)
     jax_module, jax_dim, jax_kind = jax_encoders.build_encoder(arch)
     assert (dim, kind) == (jax_dim, jax_kind) == (module.feat_dim, "clip")
-    assert arch not in encoders._LATER
+    assert arch in encoders.ENCODER_REGISTRY
     n_blocks = sum(jax_module.layers)
     assert module.n_blocks == n_blocks
     assert module.Conv_0.weight.dtype == torch.float32

@@ -6,7 +6,9 @@
 - end to end: ``avtex_torch``'s TextureServer (from decoded frames) and
   pipeline against ``avtex``'s (from the file), on one tiny clip and the
   same carried-over weights: identical transition indices for the same
-  seed, embedding tables within 1e-4.
+  seed, embedding tables within 1e-4; with ``walk_on_device=True`` the
+  same, the port's device walk fed avtex's noise (the walk alone is held
+  in tests/test_torch_device_walk.py).
 """
 
 import dataclasses
@@ -208,6 +210,60 @@ def test_server_and_pipeline_match_avtex(monkeypatch, tiny_clip):
                                   want["stitched"]["frames_intp"])
 
 
+def test_server_and_pipeline_device_walk_match_avtex(monkeypatch, tiny_clip):
+    """``walk_on_device=True`` in the server and in ``synthesize``: the
+    port's device walk fed the draws of avtex's ``jax.random.key(seed)``
+    picks avtex's indices and frames."""
+    from avtex.contrastive.model import ContrastiveTextures as JaxCT
+    from avtex.synth.pipeline import synthesize as jax_synthesize
+    from avtex.synth.server import TextureServer as JaxServer
+    from avtex_torch.convert import convert_params
+    from avtex_torch.synth import TextureServer, server as server_mod
+    from avtex_torch.synth import synthesize
+    from avtex_torch.synth.pipeline import build_model
+    from test_torch_device_walk import _avtex_noise
+
+    def on_avtex_noise(q, t, steps, seed=0, **kw):
+        return engine.synthesize_indices(
+            q, t, steps, noise=_avtex_noise(seed, steps, q.shape[0]), **kw)
+
+    monkeypatch.setenv("AVTEX_WALK_AOT", "0")
+    monkeypatch.setattr(server_mod, "synthesize_indices", on_avtex_noise)
+    monkeypatch.setitem(jax_encoders.ENCODER_REGISTRY, "slowfast",
+                        (_small_jax_slowfast, "slowfast"))
+    path, frames, fps = tiny_clip
+    common = dict(enc_arch="slowfast", norm="affine", img_size=32,
+                  mini_batchsize=8, new_video_length=4, seed=0)
+    jcfg = JaxConfig(**common)
+    cfg = Config(**common, compute_dtype="float32")
+    W = jcfg.derive_geometry(fps).window
+    jparams = _jax_params(JaxCT(arch="slowfast", norm="affine"), frames, W)
+    params = convert_params(jparams, build_model(cfg, None, "cpu", **SMALL))
+    jserver = JaxServer(jcfg, path, params=jparams)
+    server = TextureServer.from_frames(cfg, frames, fps, params,
+                                       device="cpu", **SMALL)
+    jumps = 0
+    for req in (dict(seconds=4, seed=1), dict(seconds=6, threshold=0.2,
+                                              seed=2)):
+        got = server.synthesize(walk_on_device=True, **req)
+        want = jserver.synthesize(walk_on_device=True, **req)
+        jumps += int(want["result"].jumps[1:].sum())
+        for key in ("indices", "jumps", "nonzero_counts", "greedy_ids"):
+            np.testing.assert_array_equal(getattr(got["result"], key),
+                                          getattr(want["result"], key))
+        np.testing.assert_allclose(got["result"].entropies,
+                                   want["result"].entropies, rtol=1e-5)
+        np.testing.assert_array_equal(got["frames"], want["frames"])
+    assert jumps > 0
+    got = synthesize(cfg, path, params, device="cpu", walk_on_device=True,
+                     **SMALL)
+    want = jax_synthesize(jcfg, path, jparams, walk_on_device=True)
+    np.testing.assert_array_equal(got["result"].indices,
+                                  want["result"].indices)
+    np.testing.assert_array_equal(got["stitched"]["frames_intp"],
+                                  want["stitched"]["frames_intp"])
+
+
 def test_server_refuses_what_is_not_ported(tiny_clip):
     from avtex_torch.synth import TextureServer
     _, frames, fps = tiny_clip
@@ -215,8 +271,6 @@ def test_server_refuses_what_is_not_ported(tiny_clip):
                  mini_batchsize=8, compute_dtype="float32")
     server = TextureServer.from_frames(cfg, frames, fps, device="cpu",
                                        **SMALL)
-    with pytest.raises(NotImplementedError, match="Device scan walk"):
-        server.synthesize(seconds=2, walk_on_device=True)
     # driving audio is ported; its -daf Contrastive mode is not
     # (make_audio_scorer refuses before the wav is read)
     server.cfg = dataclasses.replace(server.cfg, da_feats="Contrastive")

@@ -300,7 +300,7 @@ def test_checkpointed_blocks_give_the_same_gradients(case):
 def test_an_encoder_without_remat_warns_and_trains_without(monkeypatch,
                                                           capsys):
     from avtex_torch.nn import encoders, resnet3d
-    monkeypatch.setitem(encoders._PORTED, "resnet10", (
+    monkeypatch.setitem(encoders.ENCODER_REGISTRY, "resnet10", (
         lambda dtype, norm, **kw: resnet3d.resnet3d10(dtype=dtype, norm=norm,
                                                       **kw), "clip"))
     enc, _, _ = encoders.build_encoder("resnet10", remat=True)
