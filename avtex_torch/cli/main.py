@@ -13,11 +13,12 @@ restore the checkpoint at ``-resume`` or the path derived from the flags
 ``avtex_torch.train.restore_checkpoint``), synthesize and write the
 texture, the bar plots and the report under ``results_<video>``. With
 ``-da`` the i-th driving wav (``<dadata>/<name>.wav``) pairs with the
-i-th video, as in avtex, scored by ``-daf VGG`` or ``Mel`` and blended
-with weight ``1 - alpha``; results go under
-``results_<video>_target_<video>_<audio>``. ``--mesh`` and ``-daf
-Contrastive`` raise ``NotImplementedError`` naming their ROADMAP.md
-Queue 1 item.
+i-th video, as in avtex, scored by ``-daf VGG``, ``Mel`` or
+``Contrastive`` (the ``VideoForAudio`` head, from the i-th
+``-daf_resume`` file when given) and blended with weight ``1 - alpha``;
+results go under ``results_<video>_target_<video>_<audio>``. ``-vcam``
+adds the CAM videos. ``--mesh`` raises ``NotImplementedError`` naming
+its ROADMAP.md Queue 1 item.
 
 One deviation from avtex: ``-rf/-results_folder`` defaults to None, and
 any folder given is the parent of the per-video folder (avtex ignores an
@@ -180,9 +181,6 @@ def per_video_config(cfg, video_name: str, itr: int = 0):
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     from avtex_torch.synth.pipeline import _not_yet
-    if args.driving_audio and args.da_feats == "Contrastive":
-        raise _not_yet("-daf Contrastive (the VideoForAudio retrieval "
-                       "head)", "Contrastive extras")
     if args.mesh:
         raise _not_yet("--mesh", "Multi-GPU")
 

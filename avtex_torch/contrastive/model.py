@@ -16,6 +16,10 @@ avtex/contrastive/model.py:53-150).
 
 ``remat`` (both classes) checkpoints the video encoders' residual blocks
 for training; the parameter names are the same either way.
+
+- ``AudioMLP``: VGGish features -> a 128-d audio embedding, three
+  ``Linear`` layers each followed by a ReLU (the last one too, as avtex
+  does), for ``VideoForAudio`` (avtex_torch/contrastive/audio_retrieval.py).
 """
 
 from __future__ import annotations
@@ -27,6 +31,27 @@ from torch import nn
 
 from avtex_torch.nn.encoders import build_encoder
 from avtex_torch.nn.vggish import VGGish
+
+
+class AudioMLP(nn.Module):
+    """[B, 12288] VGGish features -> [B, out_dim] float32 (the port of
+    avtex/contrastive/model.py:37-50): ``Dense_0..2`` as flax names them,
+    weights and biases held and computed in ``dtype``."""
+
+    def __init__(self, out_dim: int = 128, hidden: int = 4096,
+                 in_dim: int = 12288, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.Dense_0 = nn.Linear(in_dim, hidden)
+        self.Dense_1 = nn.Linear(hidden, hidden)
+        self.Dense_2 = nn.Linear(hidden, out_dim)
+        self.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for layer in (self.Dense_0, self.Dense_1, self.Dense_2):
+            x = torch.relu(layer(x))
+        return x.float()
 
 
 def _check_model_type(model_type: int) -> None:

@@ -1,9 +1,10 @@
-"""Carry avtex's ContrastiveTextures parameters over to the port.
+"""Carry avtex's model parameters over to the port.
 
-``convert_params(tree, model)`` takes the flax parameter tree of
-``avtex.contrastive.model.ContrastiveTextures`` as a nested dict of numpy
+``convert_params(tree, model)`` takes the flax parameter tree of one of
+avtex's models (``ContrastiveTextures``, ``VideoForAudio``,
+``AudioVisualFeatures``, ``ClassicTemporal``) as a nested dict of numpy
 arrays (with or without the top-level ``"params"`` collection) and returns
-a ``state_dict`` for the port's ``ContrastiveTextures``. It needs neither
+a ``state_dict`` for the port's module of the same name. It needs neither
 jax nor flax. The port names its modules after the flax tree, so the
 mapping is a renaming plus layout changes:
 
@@ -11,7 +12,12 @@ mapping is a renaming plus layout changes:
   kernel, ``[kt, kh, kw, in/groups, out]``, the same transpose to
   ``[out, in/groups, kt, kh, kw]``);
 - 4-D ``Conv_k/kernel`` (VGGish, ``audio_encoder`` of model_type=2, and
-  the 2D ResNets): HWIO -> OIHW, ``Conv_k/bias`` unchanged;
+  the 2D ResNets): HWIO -> OIHW;
+- 3-D ``Conv_k/kernel`` (a 1-D conv, ``[k, in, out]``) -> ``Conv1d``'s
+  ``[out, in, k]``;
+- 2-D ``kernel`` (a flax ``Dense``, ``[in, out]``: ``Dense_k`` of
+  ``AudioMLP``, ``video_head``) -> ``Linear.weight`` ``[out, in]``;
+- every ``bias`` unchanged;
 - ``Affine_k/{scale,bias}``: unchanged;
 - ``GroupNorm_k/{scale,bias}`` -> ``GroupNorm_k.{weight,bias}``.
 
@@ -46,6 +52,7 @@ from torch import nn
 
 _OIDHW = (4, 3, 0, 1, 2)
 _OIHW = (3, 2, 0, 1)
+_OIK = (2, 1, 0)  # [k, in, out] <-> [out, in, k], its own inverse
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -60,9 +67,13 @@ def _torch_key(path: Tuple[str, ...], value: np.ndarray
                ) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     conv = bool(mods) and mods[-1].startswith("Conv_")
+    if leaf == "kernel" and value.ndim == 2:  # Dense
+        return ".".join(mods + ["weight"]), value.T
+    if leaf == "kernel" and conv and value.ndim == 3:  # 1-D conv
+        return ".".join(mods + ["weight"]), value.transpose(_OIK)
     if leaf == "kernel" and conv and value.ndim == 4:  # VGGish
         return ".".join(mods + ["weight"]), value.transpose(_OIHW)
-    if leaf == "bias" and conv:
+    if leaf == "bias" and mods:
         return ".".join(mods + [leaf]), value
     if leaf == "fast_stem_kernel" or (leaf == "kernel" and conv):
         if value.ndim != 5:
@@ -70,18 +81,16 @@ def _torch_key(path: Tuple[str, ...], value: np.ndarray
                              f"kernel, got shape {value.shape}")
         name = leaf if leaf == "fast_stem_kernel" else "weight"
         return ".".join(mods + [name]), value.transpose(_OIDHW)
-    if mods and mods[-1].startswith("Affine_") and leaf in ("scale", "bias"):
+    if mods and mods[-1].startswith("Affine_") and leaf == "scale":
         return ".".join(mods + [leaf]), value
-    if mods and mods[-1].startswith("GroupNorm_") and leaf in ("scale",
-                                                               "bias"):
-        return ".".join(mods + ["weight" if leaf == "scale" else "bias"]), \
-            value
+    if mods and mods[-1].startswith("GroupNorm_") and leaf == "scale":
+        return ".".join(mods + ["weight"]), value
     raise KeyError("/".join(path))
 
 
 def convert_params(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """avtex ContrastiveTextures params (numpy tree) -> the port's state_dict
-    for ``model`` (float32 tensors; ``load_state_dict`` casts them)."""
+    """avtex params (numpy tree) -> the port's state_dict for ``model``
+    (float32 tensors; ``load_state_dict`` casts them)."""
     if "params" in tree and len(tree) == 1:
         tree = tree["params"]
     expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -114,8 +123,9 @@ _HWIO = (2, 3, 1, 0)
 def export_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The port's ``state_dict`` -> avtex's parameter tree
     ``{"params": {...}}`` of float32 numpy arrays (conv kernels OIDHW ->
-    DHWIO and OIHW -> HWIO, ``GroupNorm_k.weight`` -> ``GroupNorm_k/scale``);
-    the inverse of ``convert_params``."""
+    DHWIO, OIHW -> HWIO and ``[out, in, k]`` -> ``[k, in, out]``,
+    ``Linear`` weights transposed to ``[in, out]``, ``GroupNorm_k.weight``
+    -> ``GroupNorm_k/scale``); the inverse of ``convert_params``."""
     tree: Dict = {}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
@@ -125,6 +135,10 @@ def export_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             leaf = leaf if leaf == "fast_stem_kernel" else "kernel"
         elif leaf == "weight" and arr.ndim == 4:
             arr, leaf = arr.transpose(_HWIO), "kernel"
+        elif leaf == "weight" and arr.ndim == 3:
+            arr, leaf = arr.transpose(_OIK), "kernel"
+        elif leaf == "weight" and arr.ndim == 2:
+            arr, leaf = arr.T, "kernel"
         elif mods and mods[-1].startswith("GroupNorm_") and leaf == "weight":
             leaf = "scale"
         node = tree

@@ -3,7 +3,7 @@ files."""
 
 from .logger import Logger
 from .meters import AverageMeter, Timer
-from .visualizations import generate_html_report, save_bar_plot
+from .visualizations import generate_html_report, overlay_cam, save_bar_plot
 
 __all__ = ["AverageMeter", "Logger", "Timer", "generate_html_report",
-           "save_bar_plot"]
+           "overlay_cam", "save_bar_plot"]

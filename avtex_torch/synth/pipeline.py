@@ -17,9 +17,11 @@ is grafted in at random init), driving audio (``driving_audio_path``:
 audio-matched seed segment, the length clipped to the driving clip, the
 driving waveform as the output track), SuperSloMo at jumps
 (``interp_fn``, or one loaded from a found ``SuperSloMo.ckpt``, else the
-crossfade). Not yet: ``-daf Contrastive``,
-multi-GPU and CAM videos (``cfg.vcam``). Where avtex would load a
-pretrained encoder file that it finds, the port raises
+crossfade), ``-daf Contrastive`` (the ``VideoForAudio`` retrieval head,
+random or from ``-daf_resume``) and, with ``out_dir`` and ``cfg.vcam``
+(``-vcam``), the CAM videos ``_cam_q.mp4`` and ``_cam_p.mp4``
+(``avtex_torch/synth/cam.py``). Not yet: multi-GPU. Where avtex would load
+a pretrained encoder file that it finds, the port raises
 ``NotImplementedError``.
 
 Rates: source and driving examples are computed at ``sr * sub``, not
@@ -43,10 +45,14 @@ from avtex_torch.checkpoints import (checkpoint_not_ported,
                                      maybe_load_vggish,
                                      maybe_load_vggish_into_model)
 from avtex_torch.config import Config
+from avtex_torch.contrastive.audio_retrieval import (
+    VideoForAudio, embed_video_table, video_for_audio_logits)
 from avtex_torch.contrastive.model import ContrastiveTextures
+from avtex_torch.convert import convert_params
 from avtex_torch.device import resolve_device
 from avtex_torch.nn.vggish import VGGish
 
+from .cam import cam_step_frames, segment_cams
 from .embeddings import vggish_audio_features
 from .engine import driving_audio_logits, seed_segment
 
@@ -61,27 +67,32 @@ def _not_yet(what: str, item: str) -> NotImplementedError:
 
 def flax_style_init(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Random parameters initialised the way flax initialises avtex's
-    modules: ``lecun_normal`` conv kernels (4-D and 5-D; truncated normal,
-    std ``sqrt(1/fan_in)/0.8796`` with fan_in = C_in x kernel volume, cut
-    at two std), ones/zeros norm scale/bias, zero conv biases. Drawn on
-    the CPU from ``torch.Generator().manual_seed(seed)`` in state_dict
-    order; returns a float32 state_dict."""
+    modules: ``lecun_normal`` kernels (truncated normal, std
+    ``sqrt(1/fan_in)/0.8796``, cut at two std) for conv kernels (3-D
+    ``Conv1d``, 4-D and 5-D, fan_in = C_in x kernel size) and 2-D
+    ``Linear`` weights (fan_in = in_features), ones/zeros norm
+    scale/bias, zero conv and ``Linear`` biases. Any other ``weight``
+    shape than a 1-D norm scale raises. Drawn on the CPU from
+    ``torch.Generator().manual_seed(seed)`` in state_dict order; returns
+    a float32 state_dict."""
     g = torch.Generator().manual_seed(seed)
     out = {}
     for key, value in model.state_dict().items():
         leaf = key.rsplit(".", 1)[-1]
-        if value.ndim in (4, 5):  # conv kernels, OIHW / OIDHW
+        if value.ndim in (4, 5) or (leaf == "weight" and value.ndim in (2, 3)):
+            # Linear [out, in], Conv1d [out, in, k], OIHW, OIDHW
             fan_in = math.prod(value.shape[1:])
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             t = torch.empty(value.shape, dtype=torch.float32)
             torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                         generator=g)
-        elif leaf in ("scale", "weight"):
+        elif leaf in ("scale", "weight") and value.ndim == 1:
             t = torch.ones(value.shape)
         elif leaf == "bias":
             t = torch.zeros(value.shape)
         else:
-            raise KeyError(f"no initialiser for parameter {key!r}")
+            raise KeyError(f"no initialiser for parameter {key!r} of shape "
+                           f"{tuple(value.shape)}")
         out[key] = t
     return out
 
@@ -168,8 +179,6 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     """
     from .server import TextureServer  # server.py imports build_model here
 
-    if out_dir is not None and cfg.vcam:
-        raise _not_yet("CAM videos (-vcam)", "Contrastive extras")
     server = TextureServer.from_frames(
         cfg, frames_u8, fps, params, audio_path=audio_path, device=device,
         name=name, interp_fn=interp_fn, **encoder_kwargs)
@@ -197,6 +206,10 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
         paths["nonzero_png"] = save_bar_plot(
             result.nonzero_counts, base + "_nonzero.png",
             "surviving candidates per step")
+        if server.cfg.vcam:
+            t0 = time.perf_counter()
+            paths.update(_cam_videos(server, result, base))
+            timings["cam_s"] = time.perf_counter() - t0
         paths["report"] = generate_html_report(
             base + "_report.html",
             {k: os.path.basename(v) for k, v in paths.items()
@@ -212,6 +225,34 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     return {"result": out["result"], "paths": paths, "timings": timings,
             "stitched": stitched, "num_segments": server.L,
             "fps": server.fps, "window": server.W, "stride": server.S}
+
+
+def _cam_videos(server, result, base: str) -> Dict[str, str]:
+    """``-vcam``: the query tower's CAM of every segment, overlaid per step
+    on the query segment's and its successor's centre frames, written as
+    ``<base>_cam_q.mp4`` and ``_cam_p.mp4`` (avtex/synth/pipeline.py:
+    192-225). Where ``segment_cams`` raises ``ValueError`` (a 2D
+    frame-mean encoder, or ``model_type=2`` without source audio), warns
+    and writes none."""
+    import sys
+
+    from avtex_torch.media import write_video
+    try:
+        cams = segment_cams(server.model, server.video, server.W, server.S,
+                            server.L, audio_examples=server.audio_examples,
+                            tower="query", img_size=server.cfg.img_size)
+    except ValueError as e:
+        print(f"[avtex_torch] WARNING: skipping CAM videos ({e})",
+              file=sys.stderr)
+        return {}
+    q_ids = np.concatenate([[result.seed_id],
+                            np.asarray(result.indices[:-1])])
+    q_frames, p_frames = cam_step_frames(server.video, cams, q_ids,
+                                         server.W, server.S)
+    return {"cam_q_video": write_video(q_frames, base + "_cam_q.mp4",
+                                       server.fps),
+            "cam_p_video": write_video(p_frames, base + "_cam_p.mp4",
+                                       server.fps)}
 
 
 def _log_synthesis(logger, server, result, jump_count: int) -> None:
@@ -255,20 +296,27 @@ def make_audio_scorer(cfg: Config, video, audio_examples, L: int, W: int,
     """The reusable driving-audio scoring state for ``cfg.da_feats`` (the
     port of avtex/synth/pipeline.py:309-416).
 
+    "Contrastive" scores the driving examples' ``VideoForAudio`` audio
+    embeddings against its ``[L, 128]`` video table, embedded here once
+    from the ``[T, H, W, 3]`` uint8 ``video``'s segments (``W``, ``S``) in
+    ``cfg.mini_batchsize`` chunks; the arch is ``cfg.enc_arch``
+    (``slowfast`` becomes ``resnet18``), the module bf16 whatever
+    ``cfg.compute_dtype`` is and seeded flax-style from ``cfg.seed``, then
+    overwritten by avtex's checkpoint at ``cfg.daf_resume[0]`` when that
+    file exists. Its seed segment is None without source audio.
     "Mel" scores raw flattened log-mel examples; "VGG" (the reference's
     default) raw VGGish conv features, from a VGGish at its default bf16
     whatever ``cfg.compute_dtype`` is (as avtex), seeded flax-style from
     seed 0 and overwritten by a found ``pytorch_vggish.pth`` (a loud
-    warning without one). What depends only on the source (the module,
-    the per-segment source features) is computed here once; the returned
-    ``score(driving_examples, steps) -> (audio_logits [steps, L], seed_id)``
-    does only per-request work. ``audio_examples`` are the source's
-    [N, 100, 64] examples; ``video``, ``W`` and ``S`` serve
-    ``-daf Contrastive``, which is not ported.
+    warning without one). What depends only on the source (the modules,
+    the per-segment source features or video table) is computed here
+    once; the returned ``score(driving_examples, steps) -> (audio_logits
+    [steps, L], seed_id)`` does only per-request work. ``audio_examples``
+    are the source's [N, 100, 64] examples (or None).
     """
     if cfg.da_feats == "Contrastive":
-        raise _not_yet("-daf Contrastive (the VideoForAudio retrieval "
-                       "head)", "Contrastive extras")
+        return ContrastiveScorer(cfg, video, audio_examples, L, W, S,
+                                 resolve_device(device))
     if audio_examples is None:
         raise ValueError(
             f"driving audio given with -daf {cfg.da_feats} but the source "
@@ -306,6 +354,43 @@ def make_audio_scorer(cfg: Config, video, audio_examples, L: int, W: int,
         return audio_logits, seed_id
 
     return score
+
+
+class ContrastiveScorer:
+    """``make_audio_scorer``'s "Contrastive" state (avtex/synth/
+    pipeline.py:323-369): ``vfa`` (the ``VideoForAudio`` module, on its
+    device), ``video_table`` (``[L, 128]`` unit rows, fp32) and the
+    source's examples (or None). Called as ``score(driving_examples,
+    steps) -> (audio_logits [steps, L], seed_id or None)``."""
+
+    def __init__(self, cfg: Config, video, audio_examples, L: int, W: int,
+                 S: int, dev: torch.device):
+        from avtex_torch.train.checkpoint import restore_checkpoint
+
+        self.L, self.temp = L, cfg.temp
+        vfa = VideoForAudio(arch=(cfg.enc_arch if cfg.enc_arch != "slowfast"
+                                  else "resnet18"), temp=cfg.temp)
+        payload = (restore_checkpoint(cfg.daf_resume[0]) if cfg.daf_resume
+                   else None)
+        vfa.load_state_dict(flax_style_init(vfa, cfg.seed) if payload is None
+                            else convert_params(payload["state"], vfa))
+        self.vfa = vfa.to(dev).eval()
+        self.video_table = embed_video_table(
+            self.vfa, video, W, S, L, cfg.img_size,
+            max(cfg.mini_batchsize, 1))
+        self.source = (None if audio_examples is None
+                       else torch.as_tensor(audio_examples).to(dev))
+
+    def __call__(self, driving_examples, steps: int):
+        dev = self.video_table.device
+        drv_ex = torch.as_tensor(driving_examples).to(dev)
+        ids = np.minimum(np.arange(steps), len(drv_ex) - 1)
+        audio_logits = video_for_audio_logits(
+            self.vfa, drv_ex[torch.from_numpy(ids).to(dev)],
+            self.video_table, self.temp)
+        seed_id = (None if self.source is None else
+                   seed_segment(self.source, drv_ex[0], num_segments=self.L))
+        return audio_logits, seed_id
 
 
 def driving_audio_rows(cfg: Config, video, audio_examples, driving_examples,

@@ -14,9 +14,10 @@ logits (on the host by default, on the tables' device with
 interpolating: ``interp_fn`` if given, else one loaded once per server
 from a checkpoint that ``find_slomo_checkpoint`` finds, else the
 crossfade. A driving-audio request featurises only its own wav: the
-scoring state of ``cfg.da_feats`` (VGGish and the source's features) is
-built on the first such request and kept. ``TextureServer(cfg,
-video_path, params)`` decodes the file first.
+scoring state of ``cfg.da_feats`` (VGGish and the source's features, or
+for ``-daf Contrastive`` the ``VideoForAudio`` module and its
+``[L, 128]`` video table) is built on the first such request and kept.
+``TextureServer(cfg, video_path, params)`` decodes the file first.
 """
 
 from __future__ import annotations
@@ -176,7 +177,9 @@ class TextureServer:
         steps = num_synthesis_steps(-(-max_length // self.sub), self.W,
                                     self.S)
         if driving_audio is not None:
-            audio_logits, seed_id = self._scorer()(drv_eg, steps)
+            audio_logits, sid = self._scorer()(drv_eg, steps)
+            if sid is not None:  # -daf Contrastive without source audio
+                seed_id = sid
             if not walk_on_device:
                 audio_logits = audio_logits.cpu()
             timings["audio_rows_s"] = time.perf_counter() - t0

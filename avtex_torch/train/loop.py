@@ -66,12 +66,13 @@ class TrainState:
 
     ``model`` computes in its own dtype; ``params`` is the fp32 master
     copy by state_dict name (a model parameter that is already fp32 is
-    its own master); ``optimizer`` steps ``params``; ``schedule(step)``
+    its own master); ``optimizer`` steps ``params`` (SGD here, Adam in
+    ``avtex_torch.contrastive.retrieval_train``); ``schedule(step)``
     gives the LR of step ``step``; ``step`` counts the steps taken."""
 
-    model: ContrastiveTextures
+    model: torch.nn.Module
     params: Dict[str, torch.Tensor]
-    optimizer: torch.optim.SGD
+    optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
 
@@ -80,7 +81,7 @@ class TrainState:
             yield p, self.params[name]
 
     def apply_gradients(self) -> None:
-        """One SGD step of the master copy from the model's gradients,
+        """One optimizer step of the master copy from the model's gradients,
         then the master copy into the model; clears the gradients."""
         for p, m in self._pairs():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -199,6 +200,19 @@ def make_lr_schedule(cfg: Config, steps_per_epoch: int
     return schedule
 
 
+def load_master_copy(model: torch.nn.Module,
+                     params: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Load ``params`` (an fp32 state_dict) into ``model`` (already on its
+    device) and return the fp32 master copy by parameter name: the
+    model's own tensor where it is fp32, an fp32 clone of ``params``
+    otherwise."""
+    model.load_state_dict(params)
+    return {name: p if p.dtype == torch.float32 else
+            params[name].to(p.device, torch.float32).clone()
+            for name, p in model.named_parameters()}
+
+
 def create_state(model: ContrastiveTextures, cfg: Config,
                  steps_per_epoch: int,
                  params: Optional[Dict[str, torch.Tensor]] = None
@@ -212,10 +226,7 @@ def create_state(model: ContrastiveTextures, cfg: Config,
         if cfg.model_type == 2:
             params, _ = maybe_load_vggish_into_model(
                 params, context="model_type=2 training init")
-    model.load_state_dict(params)
-    master = {name: p if p.dtype == torch.float32 else
-              params[name].to(p.device, torch.float32).clone()
-              for name, p in model.named_parameters()}
+    master = load_master_copy(model, params)
     optimizer = torch.optim.SGD(list(master.values()), lr=cfg.lr,
                                 momentum=cfg.momentum, dampening=0.0,
                                 weight_decay=cfg.weight_decay,

@@ -139,7 +139,29 @@ non-zero, and no result line is printed):
    warm-up step at -bs 8 -negs 8: finite losses, ms, peak memory; (e)
    the audio baselines through the library: audio_nearest_neighbour on
    phase 5d's wavs on the card (each match within 1e-4 of the best fp64
-   cosine), the random walks and the shift.
+   cosine), the random walks and the shift;
+11. the contrastive extras, on phase 5's server and phase 5d's wavs: (b)
+   train_video_for_audio at avtex's defaults (resnet18, 112 px, batch 8,
+   7 negatives: 64 clips a step) for 2 epochs of 37 steps (finite
+   losses, s, peak memory), 30 steps on one repeated batch (the loss
+   falls by 20%; warm step ms, clips/s), two steps at width 16, 64 px in
+   fp32 on the card and the CPU from the same parameters (losses within
+   1e-4); (a) -daf Contrastive through phase 5's server (VideoForAudio:
+   resnet18 at 224^2, bf16), two 30 s requests with the driving wav (its
+   291 examples set 873 frames: 144 steps): a [297, 128] unit-row table,
+   [144, 297] finite rows, the scorer built
+   once, the same indices, the table against an fp32 VideoForAudio on the
+   same weights (cosine >= 0.999 per row), a -daf_resume file from (b)'s
+   parameters loaded by a new server whose rows are bit-identical to the
+   trained module's; scorer_s, audio_rows_s and host-to-host s; (c)
+   segment_cams of phase 5's query tower over the 297 segments at 224^2
+   ([297, 7, 7], finite; fused_conv1x1's launches counted; fuse="all"
+   against fuse=False, cosine >= 0.999 per segment), cam_step_frames of
+   (a)'s first request (two [144, 224, 224, 3] uint8 arrays) and the
+   overlay on the card against its numpy run, bit for bit; cam_s; (d)
+   AudioVisualFeatures (8 clips of 16 x 112^2, 1 s waveforms at 22050 Hz)
+   and ClassicTemporal (resnet18, B = 2, N = 8, 112^2): card against CPU
+   in fp32, cosine >= 0.99999, bf16 and fp32 forward ms.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -249,6 +271,21 @@ WALK_RTOL = 1e-5
 ENC_COS = 0.9999
 NEW_ENCODERS = ("resnext50", "resnext101", "resnext152", "densenet121",
                 "densenet169", "resnet18_2d", "resnet34_2d")
+# Phase 11: the -daf Contrastive head (VideoForAudio: resnet18 at 224^2,
+# as avtex picks it under SlowFast) in bf16 against fp32 on the same
+# weights, and phase 5's CAMs with fuse="all" against fuse=False: cosine
+# per table row and per segment, as phase 4. Its trainer at avtex's
+# defaults; the repeated batch's loss must fall by 20% within 30 steps.
+# Card against CPU: AudioVisualFeatures and ClassicTemporal in fp32 (TF32
+# off), and two trainer steps at width 16, 64 px, fp32 and LR 1e-6: at
+# avtex's 1e-3 Adam moves each weight of the 12288-wide layer by ~10% of
+# its scale a step, and an entry whose gradient is near rounding noise
+# moves by +-LR either way, so two backends part by 4e-4 in the second
+# loss already (tests/test_torch_retrieval.py).
+VFA_COS = CAM_COS = 0.999
+OVERFIT_STEPS, OVERFIT_DROP = 30, 0.2
+VFA_CPU_WIDTH, VFA_CPU_SIZE, VFA_CPU_LR = 16, 64, 1e-6
+SIDE_COS = 0.99999
 # device-time kinds of a training step's kernels, by name
 TRAIN_KINDS = (("conv", ("conv", "xmma", "cudnn", "wgrad", "dgrad", "fprop",
                          "sm90_", "sm80_")),
@@ -894,7 +931,7 @@ def main() -> int:
         "per": f"one tower forward at batch {batch} "
                f"({LAUNCHES_PER_BATCH // 2} launches)",
     }]
-    del server, outs
+    del outs  # phase 11 serves -daf Contrastive and CAMs from `server`
     torch.cuda.empty_cache()
     kernels[0]["launches_audio_path"], audio = audio_phase(
         cfg, video, fps, n_batches, min(embed_times))
@@ -906,6 +943,8 @@ def main() -> int:
     train_phase(video, fps)
     torch.cuda.empty_cache()
     slice12_phase(tables, audio, video, fps, kernels[1])
+    torch.cuda.empty_cache()
+    contrastive_phase(server, audio, video, fps, kernels[0])
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -2651,6 +2690,332 @@ def slice12_phase(tables: tuple, audio: dict, video: np.ndarray,
             or len(shifted) != len(src_wave)):
         raise AssertionError("audio baselines failed their gates")
     log(f"    phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+def contrastive_phase(server, audio: dict, video: np.ndarray, fps: int,
+                      kernel_entry: dict) -> None:
+    """Phase 11: -daf Contrastive, its trainer, CAMs, AudioVisualFeatures
+    and ClassicTemporal (module docstring). ``server`` is phase 5's;
+    adds fused_conv1x1's launches on the CAM path to ``kernel_entry``."""
+    import tempfile
+    import torch
+    from avtex_torch.media import write_wav
+
+    t_phase = time.perf_counter()
+    log(f"[11] the contrastive extras ({nvidia_smi_line()})")
+    with tempfile.TemporaryDirectory() as tmp:
+        drv_path = write_wav(os.path.join(tmp, "driving.wav"),
+                             *audio["driving"])
+        trained = retrieval_train_phase(server, audio, video)
+        first = daf_contrastive_phase(server, video, fps, drv_path, trained,
+                                      tmp)
+    del trained
+    torch.cuda.empty_cache()
+    kernel_entry["launches_cam_path"] = cam_phase(server, first)
+    torch.cuda.empty_cache()
+    side_modules_phase(video)
+    log(f"    phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
+def retrieval_train_phase(server, audio: dict, video: np.ndarray):
+    """Phase 11 (b): train_video_for_audio at avtex's defaults; a repeated
+    batch overfit; card against CPU at a small width. Returns the trained
+    module and its fp32 master parameters for (a)."""
+    import torch
+    from avtex_torch.audio import waveform_to_examples
+    from avtex_torch.contrastive.audio_retrieval import VideoForAudio
+    from avtex_torch.contrastive.retrieval_train import (
+        create_retrieval_state, retrieval_batches, retrieval_step,
+        train_video_for_audio)
+    from avtex_torch.synth.pipeline import flax_style_init
+
+    W, S, L = server.W, server.S, server.L
+    examples = waveform_to_examples(*audio["source"], device="cuda")
+    bs, negs, epochs = 8, 7, 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, history = train_video_for_audio(
+        video, examples.cpu().numpy(), W, S, epochs=epochs, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = epochs * (L // bs)
+    log(f"    (b) train_video_for_audio at avtex's defaults (resnet18, "
+        f"112 px, batch {bs}, {negs} negatives: {bs * (1 + negs)} clips a "
+        f"step), {epochs} epochs of {L // bs} steps on the {len(video)}-"
+        f"frame video and {len(examples)} source examples: {train_s:.2f} s "
+        f"(init and upload included), epoch losses {history}, peak "
+        f"{peak:.2f} GiB")
+    if len(history) != epochs or not np.isfinite(history).all():
+        raise AssertionError(f"retrieval training losses {history}")
+
+    # one batch again and again: the loss must fall; warm steps timed
+    ov = VideoForAudio("resnet18")
+    state = create_retrieval_state(ov.cuda().train(), 1e-3,
+                                   flax_style_init(ov, 1))
+    ids, t_ids = next(retrieval_batches(L, bs, negs,
+                                        np.random.default_rng(0)))
+    video_dev = torch.from_numpy(video).cuda()
+    a = examples[torch.from_numpy(np.minimum(ids, len(examples) - 1)).cuda()]
+    v = video_dev[torch.from_numpy(t_ids * S).cuda()[..., None]
+                  + torch.arange(W, device="cuda")]
+    losses, step_s = [], []
+    for _ in range(OVERFIT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(retrieval_step(state, a, v, 112)))
+        step_s.append(time.perf_counter() - t0)
+    step_ms = float(np.median(step_s[2:])) * 1e3
+    log(f"      a repeated batch, {OVERFIT_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> lowest {min(losses[1:]):.4f}, last "
+        f"{losses[-1]:.4f}; a warm step {step_ms:.1f} ms host to host "
+        f"(median of {len(step_s) - 2}), {bs * (1 + negs) / step_ms * 1e3:.0f}"
+        f" clips/s")
+    if not (np.isfinite(losses).all()
+            and min(losses[1:]) <= (1 - OVERFIT_DROP) * losses[0]):
+        raise AssertionError(f"the repeated batch's loss did not fall by "
+                             f"{OVERFIT_DROP:.0%}: {losses}")
+    del ov, state, video_dev, a, v
+
+    # the card against the CPU, fp32, a small width
+    frames = synthetic_video(3, 30, VFA_CPU_SIZE)
+    small_l = (len(frames) - W) // S
+    ex = examples[:small_l].cpu()
+    init = flax_style_init(VideoForAudio("resnet18", dtype=torch.float32,
+                                         width=VFA_CPU_WIDTH), 2)
+    batches = [b for _, b in zip(range(2), retrieval_batches(
+        small_l, 2, 2, np.random.default_rng(1)))]
+    runs = {}
+    with fp32_exact():
+        for dev in ("cpu", "cuda"):
+            m = VideoForAudio("resnet18", dtype=torch.float32,
+                              width=VFA_CPU_WIDTH).to(dev).train()
+            st = create_retrieval_state(
+                m, VFA_CPU_LR, {k: t.clone() for k, t in init.items()})
+            vid, aud = torch.from_numpy(frames).to(dev), ex.to(dev)
+            runs[dev] = [float(retrieval_step(
+                st, aud[torch.from_numpy(np.minimum(i, len(ex) - 1)).to(
+                    dev)], vid[torch.from_numpy(t * S).to(dev)[..., None]
+                               + torch.arange(W, device=dev)],
+                VFA_CPU_SIZE)) for i, t in batches]
+    err = max(abs(x - y) for x, y in zip(runs["cpu"], runs["cuda"]))
+    log(f"      card vs CPU, width {VFA_CPU_WIDTH} at {VFA_CPU_SIZE}^2, "
+        f"fp32, TF32 off, LR {VFA_CPU_LR:g}, two steps from the same "
+        f"parameters and batches: losses card {runs['cuda']} vs CPU "
+        f"{runs['cpu']}, max |diff| {err:.3g} (<= {CPU_LOSS_TOL:g})")
+    if err > CPU_LOSS_TOL:
+        raise AssertionError("retrieval training on the card disagrees "
+                             "with the CPU")
+    return model, params, history
+
+
+def daf_contrastive_phase(server, video: np.ndarray, fps: int,
+                          drv_path: str, trained, tmp: str):
+    """Phase 11 (a): -daf Contrastive through phase 5's server, two 30 s
+    requests; bf16 against fp32; a -daf_resume file from (b). Returns the
+    first request's result."""
+    import dataclasses
+    import torch
+    from avtex_torch.audio import waveform_to_examples
+    from avtex_torch.contrastive.audio_retrieval import (
+        VideoForAudio, embed_video_table, video_for_audio_logits)
+    from avtex_torch.convert import export_params
+    from avtex_torch.media import read_wav
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.train import save_checkpoint
+
+    server.cfg = dataclasses.replace(server.cfg, da_feats="Contrastive")
+    cfg, W, S, L = server.cfg, server.W, server.S, server.L
+    outs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = server.synthesize(seconds=30, seed=5, driving_audio=drv_path)
+        out["host_s"] = time.perf_counter() - t0
+        outs.append(out)
+    scorer = server._scorer()
+    table = scorer.video_table
+    wave, sr = read_wav(drv_path)  # what the server read
+    drv_eg = waveform_to_examples(wave, sr * server.sub, device="cuda")
+    steps = len(outs[0]["result"].indices)
+    rows, seed = scorer(drv_eg, steps)
+    norms = torch.linalg.vector_norm(table, dim=-1)
+    for i, out in enumerate(outs):
+        t = out["timings"]
+        log(f"    (a) -daf Contrastive request {i + 1} (30 s, {steps} "
+            f"steps, seed segment {out['result'].seed_id}): "
+            + (f"scorer_s {t['scorer_s']:.3f} s, " if "scorer_s" in t
+               else "scorer reused, ")
+            + f"audio_rows_s {t['audio_rows_s']:.3f} s, walk "
+            f"{t['walk_s']:.4f} s, stitch {t['stitch_s']:.3f} s, host to "
+            f"host {out['host_s']:.3f} s, {len(out['frames'])} frames")
+    if not (tuple(table.shape) == (L, 128) and torch.isfinite(table).all()
+            and float((norms - 1).abs().max()) <= 1e-3):
+        raise AssertionError(f"bad -daf Contrastive table "
+                             f"{tuple(table.shape)}")
+    # phase 5's server has no source wav: no audio-matched seed
+    if not (tuple(rows.shape) == (steps, L) and steps > 0
+            and torch.isfinite(rows).all() and seed is None):
+        raise AssertionError(f"bad -daf Contrastive rows {tuple(rows.shape)}")
+    if "scorer_s" not in outs[0]["timings"] or \
+            "scorer_s" in outs[1]["timings"]:
+        raise AssertionError("the Contrastive scorer was not built once")
+    if not np.array_equal(outs[0]["result"].indices,
+                          outs[1]["result"].indices):
+        raise AssertionError("a repeated -daf Contrastive request gave "
+                             "other indices")
+
+    # the same weights in fp32
+    vfa32 = VideoForAudio("resnet18", dtype=torch.float32)
+    vfa32.load_state_dict({k: t.float() for k, t in
+                           scorer.vfa.state_dict().items()})
+    with fp32_exact():
+        t32 = embed_video_table(vfa32.cuda().eval(), server.video, W, S, L,
+                                cfg.img_size, cfg.mini_batchsize)
+    cos = torch.nn.functional.cosine_similarity(table, t32, dim=-1)
+    log(f"      the [{L}, 128] table: unit rows (max |norm - 1| "
+        f"{float((norms - 1).abs().max()):.2g}); bf16 vs fp32 on the same "
+        f"weights, cosine min {float(cos.min()):.6f} (>= {VFA_COS}); rows "
+        f"[{steps}, {L}] finite")
+    if float(cos.min()) < VFA_COS:
+        raise AssertionError("the bf16 Contrastive table disagrees with fp32")
+    del vfa32, t32
+
+    # a -daf_resume file from (b)'s parameters, into a new server
+    model_b, params_b, history = trained
+    path = save_checkpoint(tmp, "video_for_audio", export_params(params_b),
+                           len(history), "resnet18", min(history), True)
+    ids = torch.from_numpy(np.minimum(np.arange(steps),
+                                      len(drv_eg) - 1)).cuda()
+    mem = video_for_audio_logits(
+        model_b.eval(), drv_eg[ids],
+        embed_video_table(model_b, server.video, W, S, L, cfg.img_size,
+                          cfg.mini_batchsize), cfg.temp)
+    resumed = TextureServer.from_frames(
+        dataclasses.replace(cfg, daf_resume=[path]), video, float(fps),
+        server.model.state_dict(), device="cuda")
+    out = resumed.synthesize(seconds=30, seed=5, driving_audio=drv_path)
+    got, _ = resumed._scorer()(drv_eg, steps)
+    log(f"      -daf_resume from (b)'s parameters "
+        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB): rows bit-identical "
+        f"to the in-memory module's {torch.equal(got, mem)}; "
+        f"{len(out['result'].indices)} steps")
+    if not torch.equal(got, mem):
+        raise AssertionError("the -daf_resume rows differ from the trained "
+                             "module's")
+    del resumed
+    return outs[0]["result"]
+
+
+def cam_phase(server, result) -> int:
+    """Phase 11 (c): segment_cams of phase 5's query tower over every
+    segment, fuse="all" against fuse=False, the overlays of (a)'s first
+    request. Returns fused_conv1x1's launches on the CAM pass."""
+    import torch
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.obs import overlay_cam
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.synth.cam import cam_step_frames, segment_cams
+
+    W, S, L, size = server.W, server.S, server.L, server.cfg.img_size
+    batch = 16
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cams = segment_cams(server.model, server.video, W, S, L, tower="query",
+                        img_size=size, batch_size=batch)
+    torch.cuda.synchronize()
+    cam_s = time.perf_counter() - t0
+    launches = launch_counts()["fused_conv1x1"]
+    want = LAUNCHES_PER_BATCH // 2 * -(-L // batch)
+    plain = ContrastiveTextures("slowfast", norm="affine", fuse=False)
+    plain.load_state_dict(server.model.state_dict())
+    cams_plain = segment_cams(plain.cuda().eval(), server.video, W, S, L,
+                              img_size=size, batch_size=batch)
+    cos = torch.nn.functional.cosine_similarity(
+        cams.flatten(1), cams_plain.flatten(1), dim=-1)
+    q_ids = np.concatenate([[result.seed_id], result.indices[:-1]])
+    t0 = time.perf_counter()
+    q_frames, p_frames = cam_step_frames(server.video, cams, q_ids, W, S)
+    overlay_s = time.perf_counter() - t0
+    few = q_ids[:4]
+    centre = np.minimum(few * S + W // 2, len(server.video) - 1)
+    on_card = overlay_cam(torch.from_numpy(server.video[centre]).cuda(),
+                          cams[torch.from_numpy(few).cuda()]).cpu().numpy()
+    on_host = overlay_cam(server.video[centre], cams[
+        torch.from_numpy(few).cuda()].cpu().numpy())
+    log(f"    (c) segment_cams of phase 5's query tower, {L} segments at "
+        f"{size}^2 in batches of {batch}: {tuple(cams.shape)} in "
+        f"{cam_s:.3f} s, fused_conv1x1 launches {launches} (expected "
+        f"{want}); fuse='all' vs fuse=False cosine min "
+        f"{float(cos.min()):.6f} (>= {CAM_COS}); cam_step_frames of (a)'s "
+        f"first request: {q_frames.shape} and {p_frames.shape} "
+        f"{q_frames.dtype} in {overlay_s:.3f} s; overlays on the card "
+        f"equal the numpy run's on {len(few)} frames "
+        f"{np.array_equal(on_card, on_host)}")
+    side = -(-size // 32)  # SlowFast's stride: 7 at 224^2
+    if not (tuple(cams.shape) == (L, side, side)
+            and torch.isfinite(cams).all()):
+        raise AssertionError(f"bad CAMs {tuple(cams.shape)}")
+    if launches != want:
+        raise AssertionError(f"{launches} fused_conv1x1 launches on the CAM "
+                             f"pass, expected {want}")
+    if float(cos.min()) < CAM_COS:
+        raise AssertionError("CAMs with the kernel disagree with cuDNN")
+    steps = len(result.indices)
+    for f in (q_frames, p_frames):
+        if f.dtype != np.uint8 or f.shape != (steps, size, size, 3):
+            raise AssertionError(f"bad CAM frames {f.shape} {f.dtype}")
+    if not np.array_equal(on_card, on_host):
+        raise AssertionError("the overlay on the card differs from numpy's")
+    return launches
+
+
+def side_modules_phase(video: np.ndarray) -> None:
+    """Phase 11 (d): AudioVisualFeatures and ClassicTemporal, card against
+    CPU in fp32, and their bf16 forward ms."""
+    import torch
+    from avtex_torch.contrastive.av_features import AudioVisualFeatures
+    from avtex_torch.contrastive.classic_temporal import ClassicTemporal
+    from avtex_torch.data.preprocess import preprocess_clip
+    from avtex_torch.synth.pipeline import flax_style_init
+
+    g = torch.Generator().manual_seed(11)
+    clip = torch.randn((8, 16, 112, 112, 3), generator=g)
+    wav = 0.3 * torch.randn((8, 22050), generator=g)
+    W, S = 15, 6
+    L = (len(video) - W) // S
+    ids = np.arange(18) * (L // 18) * S
+    clips = preprocess_clip(torch.from_numpy(
+        video[ids[:, None] + np.arange(W)[None]]), 112)
+    q, t = clips[:2], clips[2:].reshape((2, 8) + clips.shape[1:])
+    for name, make, args in (
+            ("AudioVisualFeatures (emb 128; 8 clips of 16 x 112^2, 1 s "
+             "waveforms at 22050 Hz)", AudioVisualFeatures, (clip, wav)),
+            ("ClassicTemporal (resnet18; B = 2, N = 8 clips of 15 x 112^2)",
+             lambda dtype: ClassicTemporal("resnet18", dtype=dtype),
+             (q, t))):
+        m32 = make(dtype=torch.float32)
+        state = flax_style_init(m32, 0)
+        m32.load_state_dict(state)
+        with torch.inference_mode():
+            want = m32.eval()(*args)
+            with fp32_exact():
+                got = m32.cuda()(*(a.cuda() for a in args)).cpu()
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        bf = make(dtype=torch.bfloat16)
+        bf.load_state_dict(state)
+        bf = bf.cuda().eval()
+        dev_args = [a.cuda() for a in args]
+        with torch.inference_mode():
+            ms = time_ms(lambda: bf(*dev_args), reps=10)
+            with fp32_exact():
+                ms32 = time_ms(lambda: m32(*dev_args), reps=5)
+        log(f"    (d) {name}: output {tuple(got.shape)}, card vs CPU fp32 "
+            f"cosine min {float(cos.min()):.7f} (>= {SIDE_COS}); forward "
+            f"bf16 {ms:.2f} ms, fp32 {ms32:.2f} ms")
+        if not (torch.isfinite(got).all() and float(cos.min()) >= SIDE_COS):
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+        del m32, bf, dev_args
+
 
 if __name__ == "__main__":
     sys.exit(main())

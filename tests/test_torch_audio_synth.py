@@ -15,8 +15,10 @@ audio) against avtex, on the same seeded numpy inputs.
   ``synthesize(driving_audio_path=)`` with identical indices, frame count
   and output audio (the driving waveform), a driving clip longer than
   the request included;
-- refusals: driving audio without source audio (avtex's ValueError),
-  ``model_type=2`` without audio, ``-daf Contrastive``.
+- refusals: driving audio without source audio under ``-daf VGG`` and
+  ``Mel`` (avtex's ValueError), ``model_type=2`` without audio, an unknown
+  ``-daf``. (``-daf Contrastive`` is held against avtex in
+  tests/test_torch_retrieval.py.)
 """
 
 import functools
@@ -213,9 +215,6 @@ def test_scorer_seed_is_the_audio_match(monkeypatch):
 
 def test_scorer_refusals():
     src = np.zeros((5, 100, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="Contrastive extras"):
-        pipeline.make_audio_scorer(Config(da_feats="Contrastive"), None, src,
-                                   5, 4, 2, device="cpu")
     for mod, cfg in ((pipeline, Config()), (jax_pipeline, JaxConfig())):
         with pytest.raises(ValueError, match="no audio track"):
             mod.make_audio_scorer(cfg, None, None, 5, 4, 2)

@@ -15,8 +15,11 @@ driving wav in ``-dadata`` and the scorer's VGGish in fp32 from a
 ``pytorch_vggish.pth`` that the test writes.
 Also: training without ``-e`` (``-bs 2 -negs 2 -epochs 1``), whose
 ``_best`` file ``-e`` then finds, the random-init opt-out, the
-missing-checkpoint error, the refusals of what is not ported, the pairing of ``-da`` entries with
-videos and the results-folder rule."""
+missing-checkpoint error, the refusal of ``--mesh``, the pairing of
+``-da`` entries with videos and the results-folder rule. ``-e -da song
+-daf Contrastive`` with and without ``-m 2`` and ``-daf_resume`` (a file
+avtex's ``save_checkpoint`` wrote): from the file the same indices, and
+in every case the same seed, length and file names."""
 
 import dataclasses
 import os
@@ -139,9 +142,6 @@ def test_cli_without_checkpoint(clip_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     (["--mesh"], "'Multi-GPU'"),
-    (["-e", "-m", "2", "-da", "song", "-daf", "Contrastive"],
-     "'Contrastive extras'"),
-    (["-e", "-da", "song", "-daf", "Contrastive"], "'Contrastive extras'"),
     (["-e", "--mesh"], "'Multi-GPU'"),
 ])
 def test_cli_refuses_what_is_not_ported(clip_dir, tmp_path, extra, item):
@@ -305,6 +305,81 @@ def test_cli_m2_driving_audio_matches_avtex(monkeypatch, clip_dir, m2_run,
              for k in ("avtex", "port")}
     assert names["port"] == names["avtex"]
     assert any(n.endswith("_report.html") for n in names["port"])
+
+
+@pytest.fixture(scope="module")
+def vfa_resume(tmp_path_factory):
+    """A -daf_resume file: avtex's VideoForAudio for the CLI's arch
+    (resnet10), its parameters drawn with numpy, written by avtex's
+    save_checkpoint."""
+    import jax
+    import jax.numpy as jnp
+
+    import avtex.contrastive.audio_retrieval as jax_ar
+    from avtex.train.checkpoint import save_checkpoint
+    shapes = jax.eval_shape(
+        jax_ar.VideoForAudio(arch="resnet10").init, jax.random.key(0),
+        jnp.zeros((1, 100, 64)), jnp.zeros((1, 1, 15, 32, 32, 3)))
+    g = np.random.default_rng(12)
+
+    def draw(path, s):
+        if path[-1].key == "scale":
+            return (1.0 + 0.1 * g.standard_normal(s.shape)).astype(np.float32)
+        if path[-1].key == "bias":
+            return (0.1 * g.standard_normal(s.shape)).astype(np.float32)
+        return (g.standard_normal(s.shape) / np.sqrt(
+            np.prod(s.shape[:-1]))).astype(np.float32)
+    params = jax.tree_util.tree_map_with_path(draw, shapes)
+    return save_checkpoint(str(tmp_path_factory.mktemp("vfa")), "vfa",
+                           params, 3, "resnet10", 0.5, True)
+
+
+@pytest.mark.parametrize("resume", [True, False])
+@pytest.mark.parametrize("m", ["1", "2"])
+def test_cli_daf_contrastive_matches_avtex(monkeypatch, clip_dir,
+                                           avtex_checkpoint, m2_run,
+                                           vfa_resume, m, resume):
+    """-e -da song -daf Contrastive, fp32 on both sides. From the same
+    -daf_resume file the indices and the seed are identical; without one
+    each package draws its own random head (jax.random cannot be
+    reproduced), so the walks may part, but the seed, the length and the
+    files agree. -m 1 has no source wav: the walk starts at
+    start_segment (clipped to the last segment)."""
+    import functools
+
+    import jax.numpy as jnp
+
+    import avtex.contrastive.audio_retrieval as jax_ar
+    from avtex_torch.synth import pipeline
+    _fp32(monkeypatch)
+    monkeypatch.setattr(jax_ar, "VideoForAudio", functools.partial(
+        jax_ar.VideoForAudio, dtype=jnp.float32))
+    monkeypatch.setattr(pipeline, "VideoForAudio", functools.partial(
+        pipeline.VideoForAudio, dtype=torch.float32))
+    extra = ["-da", "song", "-daf", "Contrastive", "-alpha", "0.4"]
+    if resume:
+        extra += ["-daf_resume", vfa_resume]
+    tag = f"m{m}_{'resume' if resume else 'random'}"
+
+    def argv(who):
+        rf = ["-rf", str(m2_run / f"{who}_{tag}")]
+        if m == "2":
+            return _m2_flags(clip_dir, m2_run, *extra, *rf)
+        return _flags(clip_dir, avtex_checkpoint, *extra, "-dadata",
+                      str(m2_run / "target"), *rf)
+    want = _run_avtex(monkeypatch, argv("avtex"))
+    got = cli.main(argv("port") + ["-device", "cpu"])
+    assert len(want) == len(got) == 1
+    r, w = got[0]["result"], want[0]["result"]
+    assert r.seed_id == w.seed_id
+    assert len(r.indices) == len(w.indices) > 0
+    if resume:
+        np.testing.assert_array_equal(r.indices, w.indices)
+    folder = "results_clip_target_clip_song"
+    names = {k: sorted(os.listdir(m2_run / f"{k}_{tag}" / folder))
+             for k in ("avtex", "port")}
+    assert names["port"] == names["avtex"]
+    assert any("daf_Contrastive" in n for n in names["port"])
 
 
 def test_cli_m2_needs_the_source_wav(clip_dir, tmp_path):

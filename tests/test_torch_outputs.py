@@ -200,15 +200,6 @@ def test_slomo_checkpoint_raises_for_the_classic_interp_track(
     assert not np.array_equal(s["frames_intp"], b["frames_intp"])
 
 
-def test_cam_videos_are_refused_before_any_work():
-    """-vcam writes CAM videos in avtex; the port refuses it up front."""
-    from avtex_torch.synth import synthesize_frames
-    frames = np.zeros((40, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="Contrastive extras"):
-        synthesize_frames(Config(enc_arch="slowfast", vcam=True), frames,
-                          8.0, out_dir="unused", device="cpu", **SMALL)
-
-
 # --------------------------------------------------------------------- #
 # out_dir files and the logger, against avtex on the same walk
 # --------------------------------------------------------------------- #

@@ -11,7 +11,6 @@
   in tests/test_torch_device_walk.py).
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -267,16 +266,9 @@ def test_server_and_pipeline_device_walk_match_avtex(monkeypatch, tiny_clip):
 def test_server_refuses_what_is_not_ported(tiny_clip):
     from avtex_torch.synth import TextureServer
     _, frames, fps = tiny_clip
-    cfg = Config(enc_arch="slowfast", norm="affine", img_size=32,
-                 mini_batchsize=8, compute_dtype="float32")
-    server = TextureServer.from_frames(cfg, frames, fps, device="cpu",
-                                       **SMALL)
-    # driving audio is ported; its -daf Contrastive mode is not
-    # (make_audio_scorer refuses before the wav is read)
-    server.cfg = dataclasses.replace(server.cfg, da_feats="Contrastive")
-    with pytest.raises(NotImplementedError, match="Contrastive extras"):
-        server.synthesize(seconds=2, driving_audio=__file__)
-    # model_type=2 is ported; without source audio it raises as avtex does
+    # every -daf mode is ported (-daf Contrastive is held against avtex in
+    # tests/test_torch_retrieval.py); model_type=2 without source audio
+    # raises as avtex does
     with pytest.raises(ValueError, match="requires audio examples"):
         TextureServer.from_frames(Config(enc_arch="slowfast", model_type=2),
                                   frames, fps, device="cpu", **SMALL)
