@@ -16,7 +16,8 @@ device with ``jax.random.key(cfg.seed + i)``, which torch cannot
 reproduce: the same distribution, another stream. Jumps are interpolated
 with ``interp_fn`` if given, else (mode 1) with SuperSloMo from a
 checkpoint that ``find_slomo_checkpoint`` finds, loaded once per run,
-else with the crossfade, as avtex does.
+else with the native crossfade (``avtex_torch.native.stitch``), as avtex
+does.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from avtex_torch.config import ClassicConfig
 from avtex_torch.device import resolve_device
 from avtex_torch.obs import Logger
 from avtex_torch.synth.interp import InterpFn
-from avtex_torch.synth.stitcher import crossfade
+from avtex_torch.native.stitch import crossfade
 
 from .d1 import compute_d1, distance_to_transition_probs
 from .d2 import compute_d2

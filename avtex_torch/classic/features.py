@@ -9,12 +9,13 @@ The reference's three ``-f`` modes:
   features of audio example ``min(i // stride, len - 1)`` concatenated
   (512 + 12288 columns), L2-normalized rows.
 
-The reference runs an ImageNet-pretrained resnet18. The port loads no
-encoder file: when ``find_encoder_checkpoint("resnet18_2d")`` finds one it
-raises, as for the other encoders, and without one it warns as loudly as
-avtex and runs seeded random weights (``norm="group"``, bf16, flax-style
-init from seed 0). VGGish loads a found ``pytorch_vggish.pth`` and warns
-without one, as avtex does.
+The reference runs an ImageNet-pretrained resnet18. A file that
+``find_encoder_checkpoint("resnet18_2d")`` finds (``$AVTEX_ENCODER_CKPT``,
+``pretrained/resnet18-imagenet.pth``) is loaded into ``resnet2d18(norm=
+"affine")``, BatchNorm folded (``maybe_load_encoder``); without one it
+warns as loudly as avtex and runs seeded random weights (``norm="group"``,
+bf16, flax-style init from seed 0). VGGish loads a found
+``pytorch_vggish.pth`` and warns without one, as avtex does.
 """
 
 from __future__ import annotations
@@ -26,9 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from avtex_torch.checkpoints import (checkpoint_not_ported,
-                                     find_encoder_checkpoint,
-                                     maybe_load_vggish)
+from avtex_torch.checkpoints import maybe_load_encoder, maybe_load_vggish
 from avtex_torch.data.preprocess import preprocess_clip
 from avtex_torch.device import module_device
 from avtex_torch.utils import batched_apply
@@ -45,20 +44,26 @@ def rgb_features(frames: np.ndarray, device
 
 
 def _random_resnet18(device) -> nn.Module:
+    """resnet18 from a found pretrained file (``norm="affine"``; the call
+    order from a 32^2 image), else, after avtex's warning, seeded random
+    group-norm weights; bf16 on ``device``."""
     from avtex_torch.nn.resnet2d import resnet2d18
     from avtex_torch.synth.pipeline import flax_style_init
-    found = find_encoder_checkpoint("resnet18_2d")
-    if found is not None:
-        raise checkpoint_not_ported(
-            found, "the pretrained resnet18 of the classic ResNet features",
-            "Checkpoint import and observability")
-    print("[avtex_torch] WARNING: no pretrained resnet18 checkpoint found "
-          "(classic ResNet features); the reference uses torchvision "
-          "resnet18(pretrained=True) — random features make the distance "
-          "matrix meaningless. Set $AVTEX_ENCODER_CKPT or place "
-          "pretrained/resnet18-imagenet.pth.", file=sys.stderr)
-    module = resnet2d18()
-    module.load_state_dict(flax_style_init(module, 0))
+    module = resnet2d18(norm="affine")
+    state, loaded = maybe_load_encoder(
+        "resnet18_2d", module, flax_style_init(module, 0),
+        torch.zeros((1, 32, 32, 3)),
+        context="classic ResNet features")
+    if not loaded:
+        print("[avtex_torch] WARNING: no pretrained resnet18 checkpoint "
+              "found (classic ResNet features); the reference uses "
+              "torchvision resnet18(pretrained=True) — random features "
+              "make the distance matrix meaningless. Set "
+              "$AVTEX_ENCODER_CKPT or place "
+              "pretrained/resnet18-imagenet.pth.", file=sys.stderr)
+        module = resnet2d18()
+        state = flax_style_init(module, 0)
+    module.load_state_dict(state)
     return module.to(device).eval()
 
 
@@ -68,7 +73,7 @@ def resnet_features(frames: np.ndarray, device,
                     ) -> Tuple[torch.Tensor, bool]:
     """(per-frame ``ResNet2D`` features [N, 512] float32 on ``device``,
     normalize_rows=True). ``module`` is a ``ResNet2D`` with its weights
-    (None: the random resnet18 above). Frames go through in batches of
+    (None: the resnet18 above, pretrained when a file is found). Frames go through in batches of
     ``batch_size``, the tail padded by its last frame and trimmed."""
     if module is None:
         module = _random_resnet18(device)

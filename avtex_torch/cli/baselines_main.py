@@ -54,7 +54,7 @@ def main(argv=None) -> None:
     from avtex_torch.device import resolve_device
     from avtex_torch.media import (mux_audio_video, read_video, read_wav,
                                    save_texture_outputs)
-    from avtex_torch.synth.stitcher import stitch_frames
+    from avtex_torch.native.stitch import stitch_frames
 
     args = build_parser().parse_args(argv)
     out_dir = args.results_folder

@@ -1,8 +1,12 @@
-"""Self-contained AVI (RIFF) muxer: MJPEG video + PCM audio, interleaved.
+"""Self-contained AVI (RIFF) muxer: MJPEG video + PCM audio, interleaved
+(the port of avtex/media/avimux.py).
 
-The port's copy of avtex/media/avimux.py's pure-Python writer. Frames are
-JPEG-encoded with OpenCV (imported at use) and interleaved with 16-bit PCM
-chunks into one AVI with an idx1 index.
+Frames are JPEG-encoded with OpenCV (imported at use) and interleaved with
+16-bit PCM chunks into one AVI with an idx1 index. ``write_avi`` muxes
+through the C++ muxer (``avtex_torch.native.muxer``), as avtex prefers its
+native backend; once the frames are encoded, a native failure raises.
+``mux_avi`` is the byte layout in Python, the plain version the native
+files are held to, and ``write_avi_python`` encodes and muxes with it.
 """
 
 from __future__ import annotations
@@ -49,20 +53,18 @@ def _list(fourcc: bytes, payload: bytes) -> bytes:
     return _chunk(b"LIST", fourcc + payload)
 
 
-def write_avi(path: str, frames: np.ndarray, fps: float,
-              audio: Optional[np.ndarray] = None,
-              sample_rate: int = 22050, quality: int = 95) -> str:
-    """Mux uint8 RGB frames (+ optional PCM audio) into one AVI file."""
-    frames = np.asarray(frames)
-    n, h, w = frames.shape[:3]
-    jpegs = _encode_jpegs(frames, quality)
+def mux_avi(path: str, jpegs: List[bytes], width: int, height: int,
+            fps: float, pcm: Optional[np.ndarray] = None,
+            sample_rate: int = 22050) -> str:
+    """Write JPEG byte strings (+ optional 16-bit PCM, [n] or [n, ch]) as
+    one AVI, in Python: the native muxer's plain version."""
+    n, h, w = len(jpegs), height, width
     max_jpeg = max(len(j) for j in jpegs)
 
-    pcm = None
     channels = 1
     samples_per_frame = 0
-    if audio is not None:
-        pcm = _pcm16(audio)
+    if pcm is not None:
+        pcm = _pcm16(pcm)
         if pcm.ndim == 1:
             pcm = pcm[:, None]
         channels = pcm.shape[1]
@@ -119,3 +121,27 @@ def write_avi(path: str, frames: np.ndarray, fps: float,
     with open(path, "wb") as f:
         f.write(riff)
     return path
+
+
+def write_avi_python(path: str, frames: np.ndarray, fps: float,
+                     audio: Optional[np.ndarray] = None,
+                     sample_rate: int = 22050, quality: int = 95) -> str:
+    """Mux uint8 RGB frames (+ optional audio) into one AVI in Python."""
+    frames = np.asarray(frames)
+    h, w = frames.shape[1:3]
+    return mux_avi(path, _encode_jpegs(frames, quality), w, h, fps,
+                   None if audio is None else _pcm16(audio), sample_rate)
+
+
+def write_avi(path: str, frames: np.ndarray, fps: float,
+              audio: Optional[np.ndarray] = None,
+              sample_rate: int = 22050, quality: int = 95) -> str:
+    """Mux uint8 RGB frames (+ optional audio) into one AVI through the C++
+    muxer (its files byte-identical to ``write_avi_python``'s)."""
+    from avtex_torch.native import muxer
+    frames = np.asarray(frames)
+    h, w = frames.shape[1:3]
+    jpegs = _encode_jpegs(frames, quality)
+    return muxer.write_avi(path, jpegs, w, h, fps,
+                           None if audio is None else _pcm16(audio),
+                           sample_rate)

@@ -20,9 +20,10 @@ driving waveform as the output track), SuperSloMo at jumps
 crossfade), ``-daf Contrastive`` (the ``VideoForAudio`` retrieval head,
 random or from ``-daf_resume``) and, with ``out_dir`` and ``cfg.vcam``
 (``-vcam``), the CAM videos ``_cam_q.mp4`` and ``_cam_p.mp4``
-(``avtex_torch/synth/cam.py``). Not yet: multi-GPU. Where avtex would load
-a pretrained encoder file that it finds, the port raises
-``NotImplementedError``.
+(``avtex_torch/synth/cam.py``). Under ``norm="affine"`` without given
+parameters, a pretrained encoder file that ``find_encoder_checkpoint``
+finds is loaded into both towers, BatchNorm folded, as avtex does. Not
+yet: multi-GPU.
 
 Rates: source and driving examples are computed at ``sr * sub``, not
 ``sr`` (the reference's quirk, kept by avtex), the source waveform
@@ -40,8 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from avtex_torch.checkpoints import (checkpoint_not_ported,
-                                     find_encoder_checkpoint,
+from avtex_torch.checkpoints import (maybe_load_encoder_into_model,
                                      maybe_load_vggish,
                                      maybe_load_vggish_into_model)
 from avtex_torch.config import Config
@@ -102,21 +102,24 @@ def init_params_for_synthesis(cfg: Config, model: nn.Module,
                               ) -> Dict[str, torch.Tensor]:
     """``flax_style_init(model, seed)`` (``cfg.seed`` by default); for
     ``model_type=2`` a found ``pytorch_vggish.pth`` is grafted into the
-    shared VGGish (a loud warning without one), as avtex does.
-
-    Raises ``NotImplementedError`` for ``norm="affine"`` when a pretrained
-    encoder checkpoint is found: avtex loads it into both towers here.
+    shared VGGish (a loud warning without one); for ``norm="affine"`` a
+    found pretrained encoder file (``$AVTEX_ENCODER_CKPT``,
+    ``pretrained/<file>``) into both towers' video encoders, in avtex's
+    order. The call order of a BN-folded import comes from ``model``'s
+    query encoder on a zero clip of ``cfg.window`` frames.
     """
-    if cfg.norm == "affine":
-        found = find_encoder_checkpoint(cfg.enc_arch)
-        if found is not None:
-            raise checkpoint_not_ported(
-                found, f"the pretrained {cfg.enc_arch} encoder of "
-                "norm=affine synthesis", "Checkpoint import and observability")
     out = flax_style_init(model, cfg.seed if seed is None else seed)
     if cfg.model_type == 2:
         out, _ = maybe_load_vggish_into_model(
             out, context="model_type=2 synthesis (random init)")
+    if cfg.norm == "affine":
+        # The affine configuration exists to run pretrained frozen-BN
+        # imports: random affine weights defeat it.
+        q = getattr(model, "q_embedder", None)
+        out, _ = maybe_load_encoder_into_model(
+            cfg.enc_arch, out, window=cfg.window,
+            encoder=None if q is None else q.video_encoder,
+            context="norm=affine synthesis (no trained checkpoint)")
     return out
 
 

@@ -1,12 +1,17 @@
 """Host-side frame/audio assembly for synthesized textures (the port of
 avtex/synth/stitcher.py and the numpy paths of avtex/native/stitch.py).
 
+``stitch_texture`` gathers frames and crossfades jumps through the C++
+host runtime (``avtex_torch.native.stitch``), as avtex does whenever its
+library is built; ``stitch_frames`` and ``crossfade`` here are their numpy
+plain versions, byte-identical.
+
 - the first chosen segment contributes its full W frames, every later one
   its last S frames;
 - the interpolated texture runs at fps*(SF+1)/2: each frame is followed
   by (SF-1)/2 held copies, except at jumps, where the previous frame's
   copies are replaced by SF-1 interpolated frames (``interp_fn``, default
-  a linear crossfade) and the first new frame gets no copies;
+  the native linear crossfade) and the first new frame gets no copies;
 - source-audio slices follow the emitted frame ids.
 """
 
@@ -15,6 +20,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from avtex_torch.native import stitch as native_stitch
 
 
 def stitch_frames(video: np.ndarray, frame_ids: np.ndarray,
@@ -86,19 +93,20 @@ def stitch_texture(video: np.ndarray, indices: Sequence[int], window: int,
 
     ``video`` is the decoded uint8 [T, H, W, 3] (pre-subsample);
     ``interp_fn(frame0, frame1, n_mid) -> [n_mid, H, W, 3]`` defaults to
-    ``crossfade``. Returns {"frames", "frames_intp" (None unless
+    the native crossfade. Returns {"frames", "frames_intp" (None unless
     interpolate), "frame_ids", "audio" (None without source audio),
     "jump_count"}.
     """
     frame_ids_sub, jump_at = walk_frame_ids(indices, window, stride)
     frame_ids = expand_subsample(frame_ids_sub, subsample_rate)
-    frames = stitch_frames(video, frame_ids, frames_bar=frames_bar,
-                           total_input_frames=len(video))
+    frames = native_stitch.stitch_frames(video, frame_ids,
+                                         frames_bar=frames_bar,
+                                         total_input_frames=len(video))
 
     frames_intp = None
     if interpolate:
         if interp_fn is None:
-            interp_fn = crossfade
+            interp_fn = native_stitch.crossfade
         hold = (sf - 1) // 2
         jumps = set(jump_at)
         seq: List[np.ndarray] = []

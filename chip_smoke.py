@@ -161,7 +161,28 @@ non-zero, and no result line is printed):
    overlay on the card against its numpy run, bit for bit; cam_s; (d)
    AudioVisualFeatures (8 clips of 16 x 112^2, 1 s waveforms at 22050 Hz)
    and ClassicTemporal (resnet18, B = 2, N = 8, 112^2): card against CPU
-   in fp32, cosine >= 0.99999, bf16 and fp32 forward ms.
+   in fp32, cosine >= 0.99999, bf16 and fp32 forward ms;
+12. pretrained encoder import, the native host runtime and the profiler
+   (files under a temporary directory; $AVTEX_ENCODER_CKPT set only inside
+   the phase): (a) a seeded SlowFast-R50 state under pyslowfast's names
+   (running_var >= 0.5) written as the model zoo's caffe2 .pkl and as a
+   .pyth; load_slowfast_state + convert_slowfast timed for each; each
+   loaded through $AVTEX_ENCODER_CKPT into a norm="affine" TextureServer
+   (no trained checkpoint) on the 60 s video, one 10 s request: the two
+   formats' tables bit-identical, finite unit rows, both towers holding
+   the file, the card's bf16 embeddings of 4 clips against the same file
+   in an fp32 model on the CPU at cosine >= 0.999; fused_conv1x1's
+   launches counted; (b) -ea resnet18 --norm affine from a seeded
+   r3d18_KM_200ep.pth-style file (the same gates), and the classic
+   -f ResNet with a resnet18-imagenet.pth-style file at N = 1800 (s,
+   features bit-identical to the explicitly loaded net's); (c) the native
+   runtime: a fresh g++ build (s), phase 5's 30 s request stitched with
+   the native gather and crossfade and with the numpy plain versions,
+   frames_bar off and on (byte-identical, ms each), and an AVI of 900
+   synthetic JPEG byte strings and 30 s of PCM by the C++ and the Python
+   muxer (byte-identical files, ms each); (d) trace(logdir) around one
+   warm embed batch: the Chrome trace exists and names fused_conv1x1's
+   kernel.
 
 It ends with a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -286,6 +307,11 @@ VFA_COS = CAM_COS = 0.999
 OVERFIT_STEPS, OVERFIT_DROP = 30, 0.2
 VFA_CPU_WIDTH, VFA_CPU_SIZE, VFA_CPU_LR = 16, 64, 1e-6
 SIDE_COS = 0.99999
+# Phase 12: a pretrained encoder file's bf16 embeddings on the card against
+# the same file in an fp32 model on the CPU (TF32 off), cosine per clip;
+# the number of clips compared.
+IMPORT_COS = 0.999
+IMPORT_CLIPS = 4
 # device-time kinds of a training step's kernels, by name
 TRAIN_KINDS = (("conv", ("conv", "xmma", "cudnn", "wgrad", "dgrad", "fprop",
                          "sm90_", "sm80_")),
@@ -945,6 +971,8 @@ def main() -> int:
     slice12_phase(tables, audio, video, fps, kernels[1])
     torch.cuda.empty_cache()
     contrastive_phase(server, audio, video, fps, kernels[0])
+    torch.cuda.empty_cache()
+    import_phase(server, video, fps, kernels[0])
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -3015,6 +3043,351 @@ def side_modules_phase(video: np.ndarray) -> None:
         if not (torch.isfinite(got).all() and float(cos.min()) >= SIDE_COS):
             raise AssertionError(f"{name}: the card disagrees with the CPU")
         del m32, bf, dev_args
+
+
+def import_phase(server, video: np.ndarray, fps: int, kernel_entry: dict
+                 ) -> None:
+    """Phase 12: pretrained encoder import, the native host runtime and
+    the profiler (module docstring)."""
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    log(f"[12] pretrained encoder import, the native runtime, the profiler "
+        f"({nvidia_smi_line()})")
+    saved = os.environ.pop("AVTEX_ENCODER_CKPT", None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kernel_entry["launches_pretrained_path"] = slowfast_import_phase(
+                video, fps, tmp)
+            torch.cuda.empty_cache()
+            bn_import_phase(video, fps, tmp)
+    finally:
+        os.environ.pop("AVTEX_ENCODER_CKPT", None)
+        if saved is not None:
+            os.environ["AVTEX_ENCODER_CKPT"] = saved
+    torch.cuda.empty_cache()
+    native_phase(server)
+    profiler_phase(server)
+    log(f"    phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_imported_server(label: str, cfg, video: np.ndarray, fps: int,
+                          path: str, want_state: dict):
+    """A norm="affine" server loading ``path`` through $AVTEX_ENCODER_CKPT
+    with no trained checkpoint; one 10 s request; unit rows; both towers
+    hold ``want_state`` (the encoder's converted state); the card's bf16
+    embeddings of IMPORT_CLIPS clips against the same file loaded into an
+    fp32 model on the CPU. Returns (server, fused_conv1x1 launches)."""
+    import dataclasses
+    import torch
+    from avtex_torch.native.stitch import crossfade
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.synth.embeddings import precompute_embeddings_from_video
+    from avtex_torch.synth.pipeline import build_model
+
+    os.environ["AVTEX_ENCODER_CKPT"] = path
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    server = TextureServer.from_frames(cfg, video, float(fps),
+                                       device="cuda", interp_fn=crossfade)
+    load_s = time.perf_counter() - t0
+    launches = launch_counts()["fused_conv1x1"]
+    out = server.synthesize(seconds=10, seed=1)
+    state = server.model.state_dict()
+    held = all(torch.equal(state[f"{tower}.video_encoder.{k}"],
+                           v.to(state[f"{tower}.video_encoder.{k}"].device,
+                                state[f"{tower}.video_encoder.{k}"].dtype))
+               for tower in ("q_embedder", "t_embedder")
+               for k, v in want_state.items())
+    model32 = build_model(dataclasses.replace(
+        cfg, compute_dtype="float32").derive_geometry(fps), None, "cpu")
+    with torch.inference_mode(), fp32_exact():
+        q32, _ = precompute_embeddings_from_video(
+            model32, server.video, server.W, server.S, IMPORT_CLIPS,
+            img_size=cfg.img_size, batch_size=IMPORT_CLIPS)
+    cos = torch.nn.functional.cosine_similarity(
+        server.q_table[:IMPORT_CLIPS].float().cpu(), q32, dim=-1)
+    rows_ok = True
+    for tab in (server.q_table, server.t_table):
+        norms = torch.linalg.vector_norm(tab.float(), dim=-1)
+        rows_ok &= bool(torch.isfinite(tab).all()
+                        and float((norms - 1).abs().max()) <= 1e-3)
+    log(f"        {label}: TextureServer.from_frames {load_s:.2f} s (init, "
+        f"the file's import into both towers, first embed), tables "
+        f"{tuple(server.q_table.shape)}, unit rows {rows_ok}, both towers "
+        f"hold the file {held}, fused_conv1x1 launches {launches}; a 10 s "
+        f"request {len(out['result'].indices)} steps, walk "
+        f"{out['timings']['walk_s']:.4f} s, stitch "
+        f"{out['timings']['stitch_s']:.3f} s; bf16 card vs fp32 CPU on "
+        f"{IMPORT_CLIPS} clips: cosine min {float(cos.min()):.6f} "
+        f"(>= {IMPORT_COS})")
+    if not (rows_ok and held and len(out["frames"]) >= 10 * fps):
+        raise AssertionError(f"{label}: the loaded server is wrong")
+    if float(cos.min()) < IMPORT_COS:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    return server, launches
+
+
+def slowfast_import_phase(video: np.ndarray, fps: int, tmp: str) -> int:
+    """Phase 12 (a). Returns fused_conv1x1's launches of one loaded
+    server's embed."""
+    import pickle
+    import torch
+    from avtex_torch.checkpoints import (convert_slowfast,
+                                         load_slowfast_state,
+                                         slowfast_c2_blobs,
+                                         slowfast_reference_state)
+    from avtex_torch.config import Config
+    from avtex_torch.nn.slowfast import SlowFastR50
+
+    t0 = time.perf_counter()
+    state = slowfast_reference_state(seed=12)
+    paths = {"pkl": os.path.join(tmp, "SLOWFAST_8x8_R50.pkl"),
+             "pyth": os.path.join(tmp, "SLOWFAST_8x8_R50.pyth")}
+    with open(paths["pkl"], "wb") as f:
+        pickle.dump({"blobs": slowfast_c2_blobs(state)}, f, protocol=2)
+    torch.save({"model_state": {k: torch.from_numpy(v)
+                                for k, v in state.items()}}, paths["pyth"])
+    write_s = time.perf_counter() - t0
+    slots = SlowFastR50(norm="affine").state_dict()
+    converted, read_ms = {}, {}
+    for fmt, path in paths.items():
+        t0 = time.perf_counter()
+        converted[fmt] = convert_slowfast(load_slowfast_state(path), slots)
+        read_ms[fmt] = (time.perf_counter() - t0) * 1e3
+    same_state = all(torch.equal(converted["pkl"][k], converted["pyth"][k])
+                     for k in slots)
+    log(f"    (a) SlowFast-R50: a seeded state under pyslowfast's names, "
+        f"{len(state)} tensors, {sum(v.size for v in state.values())} "
+        f"values, written as a caffe2 .pkl "
+        f"({os.path.getsize(paths['pkl']) / 2**20:.1f} MiB) and a .pyth "
+        f"({os.path.getsize(paths['pyth']) / 2**20:.1f} MiB) in "
+        f"{write_s:.2f} s; load_slowfast_state + convert_slowfast: .pkl "
+        f"{read_ms['pkl']:.1f} ms, .pyth {read_ms['pyth']:.1f} ms; the two "
+        f"conversions equal {same_state}")
+    if not same_state:
+        raise AssertionError("the .pkl and .pyth conversions differ")
+    cfg = Config(enc_arch="slowfast", norm="affine", mini_batchsize=150,
+                 seed=0)
+    servers, launches = {}, 0
+    for fmt, path in paths.items():
+        servers[fmt], launches = check_imported_server(
+            f"slowfast from the .{fmt}", cfg, video, fps, path,
+            converted[fmt])
+        servers[fmt] = (servers[fmt].q_table, servers[fmt].t_table)
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(servers["pkl"],
+                                                 servers["pyth"]))
+    log(f"        the two formats' tables bit-identical: {same}")
+    if not same:
+        raise AssertionError("the .pkl and .pyth servers' tables differ")
+    return launches
+
+
+def bn_import_phase(video: np.ndarray, fps: int, tmp: str) -> None:
+    """Phase 12 (b): -ea resnet18 --norm affine from an r3d18-style file;
+    the classic -f ResNet from a resnet18-imagenet.pth-style file."""
+    import torch
+    from avtex_torch.checkpoints import (convert_bn_folded, load_torch_state,
+                                         maybe_load_encoder,
+                                         resnet_reference_state)
+    from avtex_torch.classic import frame_features
+    from avtex_torch.classic.features import resnet_features
+    from avtex_torch.config import Config
+    from avtex_torch.nn.resnet2d import resnet2d18
+    from avtex_torch.nn.resnet3d import resnet3d18
+    from avtex_torch.synth.pipeline import flax_style_init
+
+    enc = resnet3d18(norm="affine")
+    path = os.path.join(tmp, "r3d18_KM_200ep.pth")
+    torch.save({"state_dict": {
+        k: torch.from_numpy(v) for k, v in resnet_reference_state(
+            enc, (2, 2, 2, 2), seed=13).items()}}, path)
+    want = convert_bn_folded(
+        {k: v for k, v in load_torch_state(path).items()
+         if not k.startswith("fc.")}, enc, enc.state_dict(),
+        torch.zeros((1, 15, 32, 32, 3)))
+    log(f"    (b) resnet18 (3D) from a seeded r3d18_KM_200ep.pth-style file "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB), BatchNorm folded:")
+    server, _ = check_imported_server(
+        "-ea resnet18 --norm affine",
+        Config(enc_arch="resnet18", norm="affine", mini_batchsize=150,
+               seed=0), video, fps, path, want)
+    del server
+    torch.cuda.empty_cache()
+
+    net = resnet2d18()
+    path = os.path.join(tmp, "resnet18-imagenet.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in resnet_reference_state(
+        net, (2, 2, 2, 2), seed=14).items()}, path)
+    os.environ["AVTEX_ENCODER_CKPT"] = path
+    cvideo = synthetic_video(CLASSIC_SECONDS, fps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, _ = frame_features("ResNet", cvideo, "cuda")
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    module = resnet2d18(norm="affine")
+    state, loaded = maybe_load_encoder(
+        "resnet18_2d", module, flax_style_init(module, 0),
+        torch.zeros((1, 32, 32, 3)))
+    module.load_state_dict(state)
+    direct, _ = resnet_features(cvideo, "cuda", module.cuda().eval())
+    same = loaded and torch.equal(feats, direct)
+    log(f"        classic -f ResNet with a seeded resnet18-imagenet.pth-"
+        f"style file: features {tuple(feats.shape)} of the {len(cvideo)} "
+        f"frames in {feat_s:.3f} s (the file's import included), finite "
+        f"{bool(torch.isfinite(feats).all())}, bit-identical to the "
+        f"explicitly loaded net's {same}")
+    if not (same and torch.isfinite(feats).all()
+            and tuple(feats.shape) == (len(cvideo), 512)):
+        raise AssertionError("the classic ResNet features did not load "
+                             "the file")
+
+
+def native_phase(server) -> None:
+    """Phase 12 (c): a fresh build of the host runtime; phase 5's 30 s
+    request stitched natively and with numpy; the two AVI muxers."""
+    import tempfile
+    import types
+    from avtex_torch.media import avimux
+    from avtex_torch.native import muxer
+    from avtex_torch.ops import _build
+    from avtex_torch.synth import stitcher
+
+    saved_dir = _build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.BUILD_DIR = tmp
+        try:
+            rep = _build.build_native()
+        finally:
+            _build.BUILD_DIR = saved_dir
+    log(f"    (c) the native runtime: a fresh g++ build of "
+        f"{', '.join(_build.NATIVE_SOURCES)} in {rep['seconds']:.2f} s "
+        f"({' '.join(_build.GXX_FLAGS)})")
+
+    result = server.synthesize(seconds=30, threshold=0.2, seed=2,
+                               stitch=False)["result"]
+    numpy_runtime = types.SimpleNamespace(stitch_frames=stitcher.stitch_frames,
+                                          crossfade=stitcher.crossfade)
+    native_runtime = stitcher.native_stitch
+    best = {}
+    for bar in (False, True):
+        runs, outs = {"native": [], "numpy": []}, {}
+        for _ in range(3):
+            for label, runtime in (("native", native_runtime),
+                                   ("numpy", numpy_runtime)):
+                stitcher.native_stitch = runtime
+                try:
+                    t0 = time.perf_counter()
+                    outs[label] = stitcher.stitch_texture(
+                        server.video_full, result.indices, server.W,
+                        server.S, sf=server.cfg.SF, frames_bar=bar,
+                        fps=server.fps)
+                    runs[label].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    stitcher.native_stitch = native_runtime
+        a, b = outs["native"], outs["numpy"]
+        same = all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                   for k in ("frames", "frames_intp"))
+        log(f"        stitch of phase 5's 30 s request ({len(result.indices)}"
+            f" steps, {a['jump_count']} jumps, {len(a['frames'])} frames, "
+            f"{len(a['frames_intp'])} interpolated), frames_bar={bar}: "
+            f"native {min(runs['native']):.1f} ms, numpy "
+            f"{min(runs['numpy']):.1f} ms (best of 3; runs native "
+            f"{', '.join(f'{x:.1f}' for x in runs['native'])}, numpy "
+            f"{', '.join(f'{x:.1f}' for x in runs['numpy'])}); "
+            f"byte-identical {same}")
+        if not same:
+            raise AssertionError("the native stitch differs from numpy's")
+        best[bar] = min(runs["native"])
+
+    # the parts the native runtime replaces: the gather and the crossfades
+    frame_ids, jump_at = stitcher.walk_frame_ids(result.indices, server.W,
+                                                 server.S)
+    video, sf = server.video_full, server.cfg.SF
+    pairs = [(video[frame_ids[k - 1]], video[frame_ids[k]])
+             for k in jump_at if k > 0]
+    parts = {}
+    for label, runtime in (("native", native_runtime),
+                           ("numpy", numpy_runtime)) * 2:
+        t0 = time.perf_counter()
+        runtime.stitch_frames(video, frame_ids, False, len(video))
+        t1 = time.perf_counter()
+        for f0, f1 in pairs:
+            runtime.crossfade(f0, f1, sf - 1)
+        parts[label] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+    log(f"        of which (the second of two runs each): the gather of "
+        f"{len(frame_ids)} frames native {parts['native'][0]:.1f} ms, "
+        f"numpy {parts['numpy'][0]:.1f} ms; {len(pairs)} crossfades of "
+        f"{sf - 1} frames native {parts['native'][1]:.1f} ms, numpy "
+        f"{parts['numpy'][1]:.1f} ms; the rest of the stitch (assembling "
+        f"the interpolated track, frames_bar off) "
+        f"~{best[False] - sum(parts['native']):.1f} ms")
+
+    g = np.random.default_rng(15)
+    n, sr = 900, 22050
+    jpegs = [g.bytes(int(k)) for k in g.integers(15000, 30000, n)]
+    pcm = (g.standard_normal(n * sr // 30) * 3000).astype(np.int16)
+    times, data = {"native": [], "python": []}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(3):
+            for label, write in (("native", muxer.write_avi),
+                                 ("python", avimux.mux_avi)):
+                path = os.path.join(tmp, f"{label}.avi")
+                t0 = time.perf_counter()
+                write(path, jpegs, 224, 224, 30.0, pcm, sr)
+                times[label].append((time.perf_counter() - t0) * 1e3)
+                with open(path, "rb") as f:
+                    data[label] = f.read()
+    same = data["native"] == data["python"]
+    log(f"        AVI of {n} synthetic JPEG byte strings "
+        f"({sum(map(len, jpegs)) / 2**20:.1f} MiB) and {len(pcm) / sr:.0f} s "
+        f"of PCM at {sr} Hz: C++ muxer {min(times['native']):.1f} ms, "
+        f"Python {min(times['python']):.1f} ms (best of 3); files "
+        f"byte-identical {same} ({len(data['native'])} bytes)")
+    if not same:
+        raise AssertionError("the C++ muxer's file differs from Python's")
+
+
+def profiler_phase(server) -> None:
+    """Phase 12 (d): trace(logdir) around one warm embed batch."""
+    import tempfile
+    import torch
+    from avtex_torch.obs import trace
+    from avtex_torch.synth.embeddings import precompute_embeddings_from_video
+
+    def batch():
+        precompute_embeddings_from_video(
+            server.model, server.video, server.W, server.S, 150,
+            img_size=server.cfg.img_size, batch_size=150)
+        torch.cuda.synchronize()
+
+    batch()  # warm
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with trace(tmp, name="warm_embed_batch"):
+            batch()
+        traced_s = time.perf_counter() - t0
+        files = os.listdir(tmp)
+        text = ""
+        if len(files) == 1:
+            with open(os.path.join(tmp, files[0])) as f:
+                text = f.read()
+    t0 = time.perf_counter()
+    batch()
+    plain_s = time.perf_counter() - t0
+    named = text.count("fused_conv1x1_kernel")
+    log(f"    (d) trace(logdir) around one warm embed batch (150 segments, "
+        f"both towers): {files}, {len(text) / 2**20:.1f} MiB, "
+        f"fused_conv1x1_kernel named {named} times; the batch {traced_s:.3f}"
+        f" s traced (export included) vs {plain_s:.3f} s untraced")
+    if len(files) != 1 or named == 0 or "warm_embed_batch" not in text:
+        raise AssertionError("the trace is missing or does not name the "
+                             "fused_conv1x1 kernel")
 
 
 if __name__ == "__main__":

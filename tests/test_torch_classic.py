@@ -294,8 +294,15 @@ def test_resnet_vggish_features_match_avtex(monkeypatch, tmp_path):
 def test_resnet_features_refuse_a_found_checkpoint_and_warn_without(
         monkeypatch, tmp_path, capsys):
     """No encoder file: avtex's loud warning and seeded random weights
-    (the same features twice); a found file raises, as for the other
-    encoders."""
+    (the same features twice); an unreadable file raises; a
+    ``resnet18-imagenet.pth`` is loaded, BatchNorm folded, and gives
+    avtex's features."""
+    from avtex.classic import features as j_features
+    from avtex.nn.resnet2d import resnet2d18 as j_resnet2d18
+    from avtex.utils import convert as j_convert
+    from avtex_torch.checkpoints import (maybe_load_encoder,
+                                         resnet_reference_state)
+    from avtex_torch.nn.resnet2d import resnet2d18
     vid = _video(t=5, h=24, w=24)
     monkeypatch.delenv("AVTEX_ENCODER_CKPT", raising=False)
     monkeypatch.chdir(tmp_path)
@@ -305,8 +312,32 @@ def test_resnet_features_refuse_a_found_checkpoint_and_warn_without(
     assert a.shape == (5, 512) and torch.equal(a, b)
     ckpt = tmp_path / "resnet18-imagenet.pth"
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="resnet18-imagenet.pth"):
+    with pytest.raises(Exception):  # an empty file is no checkpoint
         tc.frame_features("ResNet_VGGish", vid, "cpu")
+
+    state = resnet_reference_state(resnet2d18(), (2, 2, 2, 2), seed=4)
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in
+                state.items()}, ckpt)
+    c, _ = tc.frame_features("ResNet", vid, "cpu")  # bf16, as shipped
+    assert "loaded pretrained resnet18_2d" in capsys.readouterr().out
+    # the same file in fp32 through both imports
+    port = resnet2d18(dtype=torch.float32, norm="affine")
+    params, loaded = maybe_load_encoder("resnet18_2d", port,
+                                        port.state_dict(),
+                                        torch.zeros((1, 32, 32, 3)))
+    port.load_state_dict(params)
+    jm = j_resnet2d18(dtype=jnp.float32, norm="affine")
+    x0 = jnp.zeros((1, 112, 112, 3))
+    jparams, j_loaded = j_convert.maybe_load_encoder(
+        "resnet18_2d", jm, jax.jit(jm.init)(jax.random.key(0), x0), x0)
+    assert loaded and j_loaded
+    got = tc.resnet_features(vid, "cpu", module=port.eval())[0]
+    want = np.asarray(j_features.resnet_features(vid, module=jm,
+                                                 params=jparams)[0])
+    assert got.shape == want.shape == (5, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    cos = torch.nn.functional.cosine_similarity(c, got, dim=-1)
+    assert float(cos.min()) >= 0.99
 
 
 def test_compute_paudio_matches_avtex():

@@ -3,10 +3,10 @@ lookups and the places that would load a found file, the files of
 ``synthesize(out_dir=...)`` and what a logger receives.
 
 - ``avtex_torch.checkpoints.find_*_checkpoint`` find the same file as
-  avtex's ``avtex/utils/convert.py`` lookups; where avtex would load a
-  pretrained encoder, the port raises ``NotImplementedError`` naming the
-  file and the ROADMAP.md Queue 1 item; a SuperSloMo file is loaded
-  where avtex loads it; with no file it runs as before;
+  avtex's ``avtex/utils/convert.py`` lookups; where avtex loads a
+  pretrained encoder the port loads it too (an unreadable file raises,
+  naming it); a SuperSloMo file is loaded where avtex loads it; with no
+  file it runs as before;
 - on a tiny clip, with the same carried-over weights (the same-walk setup
   of tests/test_torch_synth.py), both pipelines write the same file names
   and report the same stats, and a recording logger receives the same
@@ -77,7 +77,10 @@ def test_lookup_finds_what_avtex_finds(kind, monkeypatch, no_checkpoints):
 
 
 def test_encoder_checkpoint_raises_for_affine_init(monkeypatch,
-                                                    no_checkpoints):
+                                                    no_checkpoints, capsys):
+    """Under norm="affine" a found encoder file is loaded into both towers;
+    an unreadable one raises, naming the file; given params and
+    norm="group" load nothing."""
     from avtex_torch.synth.pipeline import (build_model,
                                             init_params_for_synthesis)
     cfg = Config(enc_arch="slowfast", norm="affine", compute_dtype="float32")
@@ -87,13 +90,34 @@ def test_encoder_checkpoint_raises_for_affine_init(monkeypatch,
                   "sf.pkl")
     for call in (lambda: init_params_for_synthesis(cfg, model),
                  lambda: build_model(cfg, None, "cpu", **SMALL)):
-        with pytest.raises(NotImplementedError,
-                           match="Checkpoint import and observability") as e:
+        with pytest.raises(RuntimeError, match="cannot read") as e:
             call()
         assert path in str(e.value)
     build_model(cfg, params, "cpu", **SMALL)  # given params load nothing
     init_params_for_synthesis(Config(enc_arch="slowfast", norm="group"),
                               model)  # avtex loads only for affine
+
+    # a real file at SlowFast-R50's depth (width 8): both towers get it
+    full = dict(width=8)
+    state = checkpoints.slowfast_reference_state(width=8, seed=3)
+    torch.save({"model_state": {k: torch.from_numpy(np.asarray(v))
+                                for k, v in state.items()}}, path)
+    model = build_model(cfg, None, "cpu", **full)
+    loaded = model.state_dict()
+    enc = model.q_embedder.video_encoder
+    want = checkpoints.convert_slowfast(state, enc.state_dict())
+    assert "into both towers" in capsys.readouterr().out
+    for tower in ("q_embedder", "t_embedder"):
+        for k, v in want.items():
+            assert torch.equal(loaded[f"{tower}.video_encoder.{k}"],
+                               v.to(loaded[f"{tower}.video_encoder.{k}"]
+                                    .dtype)), (tower, k)
+    # at another depth avtex's default name map does not fit: a loud
+    # warning, and the random weights stay
+    small = init_params_for_synthesis(cfg, build_model(cfg, params, "cpu",
+                                                       **SMALL))
+    assert "failed" in capsys.readouterr().err
+    assert all(torch.equal(small[k], params[k]) for k in params)
 
 
 @pytest.fixture(scope="module")
