@@ -23,7 +23,9 @@ checkpoint, avtex's checkpoint files (``avtex_torch.train``) and the
 ``-e`` CLI (``python -m avtex_torch.cli.main``); the classic Schödl
 baseline with RGB features, modes 1-3
 (``avtex_torch.classic.run_classic_frames``, ``python -m
-avtex_torch.cli.classic_main``).
+avtex_torch.cli.classic_main``); multi-GPU on ``torch.distributed``
+(``avtex_torch.parallel``: the mesh, the segment-sharded embed behind
+``--mesh``, the DP+TP train step; the row-block-sharded classic chain).
 """
 
 __version__ = "0.1.0"

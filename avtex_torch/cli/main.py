@@ -17,8 +17,11 @@ i-th video, as in avtex, scored by ``-daf VGG``, ``Mel`` or
 ``Contrastive`` (the ``VideoForAudio`` head, from the i-th
 ``-daf_resume`` file when given) and blended with weight ``1 - alpha``;
 results go under ``results_<video>_target_<video>_<audio>``. ``-vcam``
-adds the CAM videos. ``--mesh`` raises ``NotImplementedError`` naming
-its ROADMAP.md Queue 1 item.
+adds the CAM videos. ``--mesh`` shards the synthesis embed over every
+rank of the world (``avtex_torch.parallel.make_mesh``: one process per
+GPU under ``torchrun``, else a one-process world); only the first rank
+writes files, logs and prints. Training ignores it, as avtex's does
+(under ``torchrun`` only the first rank trains).
 
 One deviation from avtex: ``-rf/-results_folder`` defaults to None, and
 any folder given is the parent of the per-video folder (avtex ignores an
@@ -27,6 +30,8 @@ explicit ``-rf results``, its default's value).
 Usage:
   python -m avtex_torch.cli.main -m 1 -vdata data/videos -vl clip -bs 8 -negs 8
   python -m avtex_torch.cli.main -m 1 -e -vdata data/videos -vl clip
+  torchrun --nproc_per_node=4 -m avtex_torch.cli.main -m 1 -e \
+      -vdata data/videos -vl clip --mesh
   python -m avtex_torch.cli.main -m 2 -e -vdata data/videos \
       -adata data/audio -vl clip -da song -dadata audio/target -daf VGG
 
@@ -110,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the working directory)")
     p.add_argument("-ckpt", default="./ckpt")
     p.add_argument("--mesh", action="store_true",
-                   help="shard over all local devices (not ported)")
+                   help="shard the synthesis embed over every rank of the "
+                        "world (torchrun), one GPU each")
     p.add_argument("-device", default=None,
                    help="torch device (default: cuda; 'cpu' to run there)")
     return p
@@ -179,12 +185,6 @@ def per_video_config(cfg, video_name: str, itr: int = 0):
                                results_folder=rf)
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    from avtex_torch.synth.pipeline import _not_yet
-    if args.mesh:
-        raise _not_yet("--mesh", "Multi-GPU")
-
-
 def train_one_video(cfg, video_name: str, video_path: str,
                     audio_path, device=None) -> dict:
     """Train on one video (avtex's train branch of ``run_one_video``):
@@ -213,13 +213,15 @@ def train_one_video(cfg, video_name: str, video_path: str,
     return {"state": state, "history": history}
 
 
-def run_one_video(cfg, video_name: str, device=None) -> dict:
+def run_one_video(cfg, video_name: str, device=None, mesh=None) -> dict:
     """Train on one video, or with ``-e`` synthesize it once per driving
-    wav (avtex's ``run_one_video``)."""
+    wav (avtex's ``run_one_video``); ``mesh`` shards the synthesis embed,
+    and only its first rank writes, logs and prints."""
     from avtex_torch.contrastive.model import ContrastiveTextures
     from avtex_torch.convert import convert_params
     from avtex_torch.media import video_fps
     from avtex_torch.obs import Logger
+    from avtex_torch.parallel.mesh import is_first_rank
     from avtex_torch.synth.pipeline import _DTYPES, synthesize
     from avtex_torch.train import restore_checkpoint
 
@@ -229,9 +231,11 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
     if cfg.model_type == 2 and (audio_path is None
                                 or not os.path.exists(audio_path)):
         raise FileNotFoundError(f"model_type=2 requires {audio_path}")
+    first = is_first_rank(mesh)
     if not cfg.evaluate:
-        return train_one_video(cfg, video_name, video_path, audio_path,
-                               device)
+        # training ignores the mesh, as avtex's does: one rank trains
+        return (train_one_video(cfg, video_name, video_path, audio_path,
+                                device) if first else {})
     cfg = cfg.derive_geometry(video_fps(video_path))
 
     resume = cfg.resume or cfg.default_ckpt_path(video_name)
@@ -242,8 +246,9 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
             arch=cfg.enc_arch, model_type=cfg.model_type, temp=cfg.temp,
             dtype=_DTYPES[cfg.compute_dtype], norm=cfg.norm)
         params = convert_params(payload["state"], model)
-        print(f"[avtex_torch] restored checkpoint {resume} (epoch "
-              f"{payload['epoch']}, loss {payload['best_loss']:.4f})")
+        if first:
+            print(f"[avtex_torch] restored checkpoint {resume} (epoch "
+                  f"{payload['epoch']}, loss {payload['best_loss']:.4f})")
     elif not (cfg.allow_random_init or cfg.norm == "affine"):
         # As avtex: a missing checkpoint means the flags do not match
         # training's; norm="affine" loads pretrained imports instead.
@@ -253,7 +258,7 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
             f"training so the derived path matches, give -resume "
             f"explicitly, or pass -allow_random_init to synthesize "
             f"with random weights anyway.")
-    else:
+    elif first:
         print(f"[avtex_torch] no checkpoint at {resume}; random-init params",
               file=sys.stderr)
 
@@ -261,22 +266,23 @@ def run_one_video(cfg, video_name: str, device=None) -> dict:
     if cfg.driving_audio:
         driving_paths = [os.path.join(cfg.dadata, f"{d}.wav")
                          for d in cfg.driving_audio]
-    logger = Logger(cfg.logdir, cfg.eval_logname(video_name))
+    logger = (Logger(cfg.logdir, cfg.eval_logname(video_name)) if first
+              else None)
     for d_path in driving_paths:
         out = synthesize(cfg, video_path, params, audio_path=audio_path,
                          driving_audio_path=d_path,
                          out_dir=cfg.results_folder, logger=logger,
-                         device=device)
+                         device=device, mesh=mesh)
         r = out["result"]
-        print(f"[avtex_torch] {video_name}: {len(r.indices)} steps, "
-              f"{int(r.jumps.sum())} jumps, timings {out['timings']}, "
-              f"outputs {list(out['paths'].values())}")
+        if first:
+            print(f"[avtex_torch] {video_name}: {len(r.indices)} steps, "
+                  f"{int(r.jumps.sum())} jumps, timings {out['timings']}, "
+                  f"outputs {list(out['paths'].values())}")
     return out
 
 
 def main(argv=None) -> List[dict]:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     cfg = args_to_config(args)
     if not cfg.video_list:
         if cfg.vdata and os.path.isdir(cfg.vdata):
@@ -286,9 +292,16 @@ def main(argv=None) -> List[dict]:
             raise SystemExit(
                 "need -vl video names (or -vdata pointing at a directory "
                 "of videos to discover them from)")
-    return [run_one_video(per_video_config(cfg, name, itr), name,
-                          args.device)
-            for itr, name in enumerate(cfg.video_list)]
+    from avtex_torch.parallel.mesh import make_mesh, rank_device, shutdown
+    mesh = make_mesh(device=args.device) if args.mesh else None
+    device = args.device if mesh is None else rank_device(mesh)
+    try:
+        return [run_one_video(per_video_config(cfg, name, itr), name,
+                              device, mesh)
+                for itr, name in enumerate(cfg.video_list)]
+    finally:
+        if mesh is not None:
+            shutdown()  # the world make_mesh started, if it did
 
 
 if __name__ == "__main__":

@@ -87,3 +87,16 @@ def write_video(frames: np.ndarray, path: str, fps: float,
     finally:
         writer.release()
     return path
+
+
+def write_frames_png(frames: np.ndarray, folder: str, start: int = 0) -> str:
+    """Write uint8 RGB [T, H, W, 3] frames as ``<start + i:06d>.png`` in
+    ``folder`` (made if missing), as avtex does; returns ``folder``."""
+    cv2 = _cv2()
+    os.makedirs(folder, exist_ok=True)
+    for i, f in enumerate(np.asarray(frames)):
+        if not cv2.imwrite(os.path.join(folder, f"{start + i:06d}.png"),
+                           np.ascontiguousarray(f[:, :, ::-1])):
+            raise RuntimeError(f"could not write frame {start + i} to "
+                               f"{folder}")
+    return folder

@@ -12,7 +12,8 @@
 """
 
 from .cam import cam_step_frames, segment_cams
-from .embeddings import (embed_segments_from_video,
+from .embeddings import (embed_segments, embed_segments_from_video,
+                         precompute_embeddings,
                          precompute_embeddings_from_video)
 from .engine import (SynthesisResult, num_synthesis_steps, seed_segment,
                      synthesize_indices, synthesize_indices_host)
@@ -20,7 +21,8 @@ from .pipeline import synthesize, synthesize_frames
 from .server import TextureServer
 from .stitcher import stitch_texture, walk_frame_ids
 
-__all__ = ["cam_step_frames", "segment_cams", "embed_segments_from_video",
+__all__ = ["cam_step_frames", "segment_cams", "embed_segments",
+           "precompute_embeddings", "embed_segments_from_video",
            "precompute_embeddings_from_video", "SynthesisResult", "num_synthesis_steps", "seed_segment",
            "synthesize_indices", "synthesize_indices_host", "synthesize", "synthesize_frames",
            "TextureServer", "stitch_texture", "walk_frame_ids"]

@@ -8,7 +8,10 @@ larger than the video). Each batch is preprocessed once and fed to both
 towers. For ``model_type=2`` segment i takes audio example
 ``min(i, len(examples) - 1)``, and the padded tail repeats the last row.
 ``vggish_audio_features`` featurises examples for the driving-audio
-scorer.
+scorer. ``embed_segments`` and ``precompute_embeddings`` embed windows
+the caller has already gathered (``[L, W, H, W, 3]``), with avtex's
+semantics; the segment-sharded forms are in
+``avtex_torch.parallel.sharded``.
 """
 
 from __future__ import annotations
@@ -46,16 +49,32 @@ def _segment_audio(audio_examples, num_segments: int, padded: int,
     return examples[torch.from_numpy(ids).to(device)]
 
 
+def _audio_rows(model: ContrastiveTextures, audio_examples, num_segments,
+                padded: int):
+    """``_segment_audio`` on the model's device for ``model_type=2`` with
+    examples, else None."""
+    if audio_examples is None or model.model_type != 2:
+        return None
+    return _segment_audio(audio_examples, num_segments, padded,
+                          module_device(model))
+
+
+def _batch_plan(num_segments: int, batch_size: int) -> int:
+    """The batch size that covers ``num_segments`` in as many batches as
+    ``batch_size`` does, shrunk to the smallest such multiple of 8 (L=297
+    at 128: 3x104 instead of 3x128)."""
+    n_b = -(-num_segments // batch_size)
+    return min(batch_size, ((-(-num_segments // n_b) + 7) // 8) * 8)
+
+
 def _embed_batches(model: ContrastiveTextures, video_u8, window: int,
                    starts: np.ndarray, batch_size: int, img_size: int,
-                   towers: Sequence[str], audio_examples=None,
-                   num_segments: int = 0) -> Tuple[torch.Tensor, ...]:
+                   towers: Sequence[str], audio=None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """One table per tower over the windows at ``starts`` (a whole number
+    of batches), with ``audio`` rows aligned to ``starts`` (or None)."""
     device = module_device(model)
     video = torch.as_tensor(video_u8).to(device)  # one transfer
-    audio = None
-    if audio_examples is not None and model.model_type == 2:
-        audio = _segment_audio(audio_examples, num_segments, len(starts),
-                              device)
     slowfast = model.arch == "slowfast"
     offsets = torch.arange(window, device=device)
     outs = [[] for _ in towers]
@@ -80,8 +99,9 @@ def embed_segments_from_video(model: ContrastiveTextures, video_u8,
     """[L, D] table of one tower, on the model's device."""
     starts = _padded_starts(num_segments, stride, batch_size)
     (table,) = _embed_batches(model, video_u8, window, starts, batch_size,
-                              img_size, (tower,), audio_examples,
-                              num_segments)
+                              img_size, (tower,),
+                              _audio_rows(model, audio_examples,
+                                          num_segments, len(starts)))
     return table[:num_segments]
 
 
@@ -100,12 +120,54 @@ def precompute_embeddings_from_video(model: ContrastiveTextures, video_u8,
     same number of batches (L=297 at 128: 3x104 instead of 3x128).
     """
     L = num_segments
-    n_b = -(-L // batch_size)
-    batch_size = min(batch_size, ((-(-L // n_b) + 7) // 8) * 8)
+    batch_size = _batch_plan(L, batch_size)
     starts = _padded_starts(L, stride, batch_size)
     q, t = _embed_batches(model, video_u8, window, starts, batch_size,
-                          img_size, ("query", "target"), audio_examples, L)
+                          img_size, ("query", "target"),
+                          _audio_rows(model, audio_examples, L, len(starts)))
     return q[:L], t[:L]
+
+
+def _windows_as_video(windows_u8) -> Tuple[np.ndarray, int]:
+    """Pre-gathered windows [L, W, H, W, 3] as one frame array whose
+    segment i starts at frame i * W (stride W), and W."""
+    windows = np.asarray(windows_u8)
+    return windows.reshape((-1,) + windows.shape[2:]), windows.shape[1]
+
+
+def _embed_window_batches(model, windows_u8, audio_examples, towers,
+                          img_size: int, batch_size: int):
+    video, window = _windows_as_video(windows_u8)
+    L = len(video) // window
+    starts = _padded_starts(L, window, batch_size)
+    tables = _embed_batches(model, video, window, starts, batch_size,
+                            img_size, towers,
+                            _audio_rows(model, audio_examples, L,
+                                        len(starts)))
+    return tuple(t[:L] for t in tables)
+
+
+def embed_segments(model: ContrastiveTextures, windows_u8,
+                   audio_examples=None, *, tower: str = "target",
+                   img_size: int = 224, batch_size: int = 32
+                   ) -> torch.Tensor:
+    """[L, D] table of one tower over pre-gathered uint8 windows
+    ``[L, W, H, W, 3]`` (the port of avtex/synth/embeddings.py:157-183),
+    in batches of ``batch_size`` (the tail padded by repeating the last
+    window); segment i takes audio example ``min(i, N - 1)``."""
+    (table,) = _embed_window_batches(model, windows_u8, audio_examples,
+                                     (tower,), img_size, batch_size)
+    return table
+
+
+def precompute_embeddings(model: ContrastiveTextures, windows_u8,
+                          audio_examples=None, *, img_size: int = 224,
+                          batch_size: int = 32
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, T) [L, D] tables over pre-gathered windows: both towers on each
+    batch (``embed_segments`` twice, one preprocessing)."""
+    return _embed_window_batches(model, windows_u8, audio_examples,
+                                 ("query", "target"), img_size, batch_size)
 
 
 def vggish_audio_features(vggish: torch.nn.Module, examples,

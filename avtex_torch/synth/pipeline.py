@@ -22,8 +22,10 @@ random or from ``-daf_resume``) and, with ``out_dir`` and ``cfg.vcam``
 (``-vcam``), the CAM videos ``_cam_q.mp4`` and ``_cam_p.mp4``
 (``avtex_torch/synth/cam.py``). Under ``norm="affine"`` without given
 parameters, a pretrained encoder file that ``find_encoder_checkpoint``
-finds is loaded into both towers, BatchNorm folded, as avtex does. Not
-yet: multi-GPU.
+finds is loaded into both towers, BatchNorm folded, as avtex does. With
+``mesh=`` (``avtex_torch.parallel.make_mesh``) the embed is sharded over
+the mesh's data axis; every rank walks the same tables with the same
+seed, and only the mesh's first rank writes ``out_dir`` files and logs.
 
 Rates: source and driving examples are computed at ``sr * sub``, not
 ``sr`` (the reference's quirk, kept by avtex), the source waveform
@@ -57,12 +59,6 @@ from .embeddings import vggish_audio_features
 from .engine import driving_audio_logits, seed_segment
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _not_yet(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to avtex_torch yet: ROADMAP.md Queue 1 "
-        f"'{item}'")
 
 
 def flax_style_init(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
@@ -141,7 +137,7 @@ def synthesize(cfg: Config, video_path: str, params=None,
                driving_audio_path: Optional[str] = None,
                out_dir: Optional[str] = None, logger=None,
                walk_on_device: bool = False, device=None, interp_fn=None,
-               **encoder_kwargs: Any) -> Dict:
+               mesh=None, **encoder_kwargs: Any) -> Dict:
     """Synthesize one texture from a video file (decode, then
     ``synthesize_frames``)."""
     from avtex_torch.media import read_video
@@ -153,7 +149,7 @@ def synthesize(cfg: Config, video_path: str, params=None,
         name=os.path.splitext(os.path.basename(video_path))[0],
         audio_path=audio_path, driving_audio_path=driving_audio_path,
         out_dir=out_dir, logger=logger, walk_on_device=walk_on_device,
-        device=device, interp_fn=interp_fn, **encoder_kwargs)
+        device=device, interp_fn=interp_fn, mesh=mesh, **encoder_kwargs)
     out["timings"]["decode_s"] = decode_s
     return out
 
@@ -164,7 +160,8 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
                       driving_audio_path: Optional[str] = None,
                       out_dir: Optional[str] = None, logger=None,
                       walk_on_device: bool = False, device=None,
-                      interp_fn=None, **encoder_kwargs: Any) -> Dict:
+                      interp_fn=None, mesh=None,
+                      **encoder_kwargs: Any) -> Dict:
     """Synthesize one texture from decoded uint8 RGB frames [T, H, W, 3]:
     ``TextureServer.from_frames`` and one request with the cfg's knobs.
 
@@ -177,14 +174,20 @@ def synthesize_frames(cfg: Config, frames_u8: np.ndarray, fps: float,
     ``encoder_kwargs`` reach the encoder (e.g. ``width``, ``layers``).
     ``logger`` takes ``log_scalar`` (and with ``cfg.visualize_evaluate``
     ``log_video`` and ``log_figure``), as ``avtex_torch.obs.Logger``.
+    ``mesh`` shards the embed (``TextureServer.from_frames``); ranks other
+    than its first write no files and log nothing.
     Returns {"result", "paths", "timings", "stitched", "num_segments",
     "fps", "window", "stride"}.
     """
+    from avtex_torch.parallel.mesh import is_first_rank
+
     from .server import TextureServer  # server.py imports build_model here
 
+    if not is_first_rank(mesh):
+        out_dir = logger = None
     server = TextureServer.from_frames(
         cfg, frames_u8, fps, params, audio_path=audio_path, device=device,
-        name=name, interp_fn=interp_fn, **encoder_kwargs)
+        name=name, interp_fn=interp_fn, mesh=mesh, **encoder_kwargs)
     out = server.synthesize(driving_audio=driving_audio_path,
                             walk_on_device=walk_on_device)
     result = out["result"]

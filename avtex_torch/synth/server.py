@@ -18,6 +18,8 @@ scoring state of ``cfg.da_feats`` (VGGish and the source's features, or
 for ``-daf Contrastive`` the ``VideoForAudio`` module and its
 ``[L, 128]`` video table) is built on the first such request and kept.
 ``TextureServer(cfg, video_path, params)`` decodes the file first.
+With ``mesh=`` the one-time embed is sharded over the mesh's data axis
+(avtex/synth/server.py:80-90).
 """
 
 from __future__ import annotations
@@ -48,34 +50,41 @@ class TextureServer:
 
     def __init__(self, cfg: Config, video_path: str, params=None,
                  audio_path: Optional[str] = None, *, device=None,
-                 interp_fn: Optional[InterpFn] = None,
+                 interp_fn: Optional[InterpFn] = None, mesh=None,
                  **encoder_kwargs: Any):
         from avtex_torch.media import read_video
         frames, fps = read_video(video_path)
         self._setup(cfg, frames, fps, params, audio_path, device,
                     os.path.splitext(os.path.basename(video_path))[0],
-                    interp_fn, encoder_kwargs)
+                    interp_fn, mesh, encoder_kwargs)
 
     @classmethod
     def from_frames(cls, cfg: Config, frames_u8: np.ndarray, fps: float,
                     params=None, *, audio_path: Optional[str] = None,
                     device=None, name: str = "texture",
-                    interp_fn: Optional[InterpFn] = None,
+                    interp_fn: Optional[InterpFn] = None, mesh=None,
                     **encoder_kwargs: Any) -> "TextureServer":
         """Serve already-decoded uint8 RGB frames [T, H, W, 3].
 
         ``params`` is the port's state_dict (None: seeded flax-style init);
         ``interp_fn(frame0, frame1, n_mid)`` makes the frames at jumps
         (None: SuperSloMo from a found checkpoint, else the crossfade);
+        ``mesh`` (``avtex_torch.parallel.make_mesh``) shards the embed's
+        segments over its data axis (``sharded_embed_from_video``, each
+        tower in turn), every rank then holding both whole tables, on
+        this rank's device unless ``device`` says otherwise;
         ``encoder_kwargs`` reach the encoder (e.g. ``width``, ``layers``).
         """
         self = cls.__new__(cls)
         self._setup(cfg, frames_u8, fps, params, audio_path, device, name,
-                    interp_fn, encoder_kwargs)
+                    interp_fn, mesh, encoder_kwargs)
         return self
 
     def _setup(self, cfg, frames_u8, fps, params, audio_path, device, name,
-               interp_fn, encoder_kwargs):
+               interp_fn, mesh, encoder_kwargs):
+        if mesh is not None and device is None:
+            from avtex_torch.parallel.mesh import rank_device
+            device = rank_device(mesh)
         self.device = resolve_device(device)
         self._interp_fn = interp_fn
         self.video_full, self.fps = np.asarray(frames_u8), float(fps)
@@ -103,10 +112,19 @@ class TextureServer:
         self.model = build_model(self.cfg, params, self.device,
                                  **encoder_kwargs)
         t0 = time.perf_counter()
-        self.q_table, self.t_table = precompute_embeddings_from_video(
-            self.model, self.video, self.W, self.S, self.L,
-            self.audio_examples, img_size=self.cfg.img_size,
-            batch_size=max(self.cfg.mini_batchsize, 1))
+        args = (self.model, self.video, self.W, self.S, self.L,
+                self.audio_examples)
+        kw = dict(img_size=self.cfg.img_size,
+                  batch_size=max(self.cfg.mini_batchsize, 1))
+        if mesh is not None:
+            from avtex_torch.parallel import sharded_embed_from_video
+            self.q_table, self.t_table = (
+                sharded_embed_from_video(args[0], mesh, *args[1:],
+                                         tower=tower, **kw)
+                for tower in ("query", "target"))
+        else:
+            self.q_table, self.t_table = precompute_embeddings_from_video(
+                *args, **kw)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.embed_s = time.perf_counter() - t0

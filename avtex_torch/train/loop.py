@@ -46,7 +46,7 @@ from avtex_torch.contrastive.model import ContrastiveTextures
 from avtex_torch.convert import (convert_opt_state, convert_params,
                                  export_opt_state, export_params)
 from avtex_torch.data.pipeline import SegmentBatches, prefetch
-from avtex_torch.data.preprocess import (augment_and_preprocess,
+from avtex_torch.data.preprocess import (apply_augment, draw_augment_params,
                                          preprocess_clip)
 from avtex_torch.device import module_device, resolve_device
 from avtex_torch.nn.slowfast import slowfast_pathways
@@ -80,12 +80,17 @@ class TrainState:
         for name, p in self.model.named_parameters():
             yield p, self.params[name]
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, grad_hook: Optional[
+            Callable[[List[torch.Tensor]], None]] = None) -> None:
         """One optimizer step of the master copy from the model's gradients,
-        then the master copy into the model; clears the gradients."""
+        then the master copy into the model; clears the gradients.
+        ``grad_hook`` gets the fp32 gradients of the master copy before the
+        step and may change them in place (the data-parallel mean)."""
         for p, m in self._pairs():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             m.grad = g if m is p else g.float()
+        if grad_hook is not None:
+            grad_hook([m.grad for _, m in self._pairs()])
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         self.optimizer.step()
@@ -127,16 +132,25 @@ class TrainState:
 
 
 def _prep_pathways(frames: torch.Tensor,
-                   generator: Optional[torch.Generator], size: int,
+                   draws: Optional[Dict[str, torch.Tensor]], size: int,
                    slowfast: bool):
     """uint8 windows -> encoder input (a clip tensor or the slowfast
-    tuple): augmented with draws from ``generator``, or preprocessed
-    without augmentation when it is None."""
-    if generator is not None:
-        x = augment_and_preprocess(frames, generator, size, slowfast)
+    tuple): augmented under ``draws`` (``draw_augment_params``), or
+    preprocessed without augmentation when it is None."""
+    if draws is not None:
+        x = apply_augment(frames, draws, size, slowfast)
     else:
         x = preprocess_clip(frames, size, slowfast)
     return slowfast_pathways(x) if slowfast else x
+
+
+def _draws(n_all: int, rows: slice, frames: torch.Tensor, size: int,
+           generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The augmentation draws of all ``n_all`` clips, cut to ``rows``: a
+    clip's draws do not depend on how the batch is split."""
+    h, w = frames.shape[2:4]
+    return {k: v[rows] for k, v in draw_augment_params(
+        n_all, h, w, size, generator).items()}
 
 
 def step_generator(seed: int, global_step: int) -> torch.Generator:
@@ -148,7 +162,11 @@ def step_generator(seed: int, global_step: int) -> torch.Generator:
 
 
 def make_train_step(model: ContrastiveTextures, size: int, slowfast: bool,
-                    augment: bool = True) -> Callable:
+                    augment: bool = True, *,
+                    rows: Optional[Callable[[int], slice]] = None,
+                    grad_hook: Optional[
+                        Callable[[List[torch.Tensor]], None]] = None
+                    ) -> Callable:
     """Build ``step(state, batch, generator) -> (state, metrics)``.
 
     ``batch`` is one of ``SegmentBatches``' numpy batches, uploaded here
@@ -156,30 +174,44 @@ def make_train_step(model: ContrastiveTextures, size: int, slowfast: bool,
     draws the query clips' augmentation, then the targets'. ``augment=
     False`` trains with the reference's exact preprocessing (resize and
     normalise only). ``metrics`` holds the loss and the top-1 accuracy as
-    0-d tensors on the device."""
+    0-d tensors on the device.
+
+    For data parallelism (``avtex_torch.parallel.make_sharded_train_step``)
+    ``rows(B)`` gives the slice of the batch's B rows this process trains
+    on (the draws are made for all B rows and cut), and ``grad_hook`` goes
+    to ``state.apply_gradients``."""
 
     def step(state: TrainState, batch: Dict, generator: torch.Generator):
         dev = module_device(model)
-        q = torch.from_numpy(np.ascontiguousarray(batch["q_frames"])).to(dev)
-        t = torch.from_numpy(np.ascontiguousarray(batch["t_frames"])).to(dev)
+        b_all = len(batch["q_frames"])
+        sel = slice(0, b_all) if rows is None else rows(b_all)
+
+        def upload(key, dtype=None):
+            if batch.get(key) is None:
+                return None
+            x = torch.from_numpy(np.ascontiguousarray(batch[key][sel]))
+            return x.to(dev, dtype)
+
+        q, t = upload("q_frames"), upload("t_frames")
         b, n = t.shape[:2]
-        gen = generator if augment else None
-        q_in = _prep_pathways(q, gen, size, slowfast)
-        t_flat = _prep_pathways(t.reshape((-1,) + t.shape[2:]), gen, size,
-                                slowfast)
+        t = t.reshape((-1,) + t.shape[2:])
+        q_draws = t_draws = None
+        if augment:
+            q_draws = _draws(b_all, sel, q, size, generator)
+            t_draws = _draws(b_all * n, slice(sel.start * n, sel.stop * n),
+                             t, size, generator)
+        q_in = _prep_pathways(q, q_draws, size, slowfast)
+        t_flat = _prep_pathways(t, t_draws, size, slowfast)
         if slowfast:
             t_in = tuple(p.reshape((b, n) + p.shape[1:]) for p in t_flat)
         else:
             t_in = t_flat.reshape((b, n) + t_flat.shape[1:])
-        audio = [None if batch.get(k) is None else
-                 torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32,
-                                 device=dev)
-                 for k in ("q_audio", "t_audio")]
+        audio = [upload(k, torch.float32) for k in ("q_audio", "t_audio")]
         logits = model(q_in, t_in, *audio)
         loss = info_nce_from_logits(logits)
         acc = (logits.argmax(dim=-1) == 0).float().mean()
         loss.backward()
-        state.apply_gradients()
+        state.apply_gradients(grad_hook)
         return state, {"loss": loss.detach(), "acc": acc.detach()}
 
     return step

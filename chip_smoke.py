@@ -182,9 +182,33 @@ non-zero, and no result line is printed):
    synthetic JPEG byte strings and 30 s of PCM by the C++ and the Python
    muxer (byte-identical files, ms each); (d) trace(logdir) around one
    warm embed batch: the Chrome trace exists and names fused_conv1x1's
-   kernel.
+   kernel;
+13. the parallel layer (avtex_torch.parallel) at world size 1: make_mesh()
+   starts a one-process NCCL world (a FileStore in a temporary directory)
+   and a (1, 1) data x model mesh, destroyed at the end of the phase; (a)
+   sharded_embed_from_video of both towers on phase 5's model and video
+   with phase 5's batch plan: tables bit-identical to phase 5's and
+   fused_conv1x1's launches per embed equal to phase 5's, sharded and
+   unsharded embed s; (b) TextureServer.from_frames(mesh=...) and a 10 s
+   request: phase 5's indices for the same seed; (c) make_sharded_train_step
+   against make_train_step at phase 9 (b)'s SlowFast-R50 configuration
+   (norm="group", bf16 + fp32 master, -bs 8 -negs 8): a warm-up step, then
+   a timed step from the same initial state, batch and draws: its loss
+   within 1e-5, the parameters after it within 1e-4 relative L2; step ms
+   and peak GiB of each; (e) the sharded embed of phase 5d's -m 2 model
+   with its source examples: tables bit-identical to phase 5d's (or cosine
+   >= 0.999 per row), unit rows, sharded and unsharded s; (d)
+   classic_transition_matrix_sharded on phase 7's N = 1800 RGB rows, one
+   sigma: P3_new and the D3 sweep count equal to the unsharded chain's on
+   the plain D1 (the sharded row block's arithmetic); against
+   classic_transition_matrix (the kernel's D1), P3 before the threshold
+   within phase 7's 1e-2 of the row max, with P3_new's difference and both
+   sweep counts printed, and the sweep count of the chain on an fp64 D1
+   (the stopping sweep and the threshold's cut follow D1's rounding at
+   near-duplicate frames); the time of each.
 
-It ends with a JSON line describing each kernel, the nvidia-smi line, and
+It ends with a ``{"parallel": ...}`` line (world size, backend and phase
+13's times), a JSON line describing each kernel, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -312,6 +336,14 @@ SIDE_COS = 0.99999
 # the number of clips compared.
 IMPORT_COS = 0.999
 IMPORT_CLIPS = 4
+# Phase 13 (c): the DP+TP train step at world size 1 against the unsharded
+# step from the same state, batch and draws. The loss comes from the same
+# forward arithmetic; the parameters after the step part only where
+# cuDNN's weight gradients and max-pool's backward (atomics) sum in
+# another order, the gate on all parameters together. (From states that
+# already part so, the next losses part by ~5e-5.)
+PAR_LOSS_TOL = 1e-5
+PAR_PARAM_TOL = 1e-4
 # device-time kinds of a training step's kernels, by name
 TRAIN_KINDS = (("conv", ("conv", "xmma", "cudnn", "wgrad", "dgrad", "fprop",
                          "sm90_", "sm80_")),
@@ -936,6 +968,7 @@ def main() -> int:
                           outs[2]["result"].indices):
         raise AssertionError("a repeated request gave other indices")
     tables = (server.q_table, server.t_table)  # phase 10 walks on them
+    ref_indices = outs[0]["result"].indices  # phase 13 (b) serves it again
     slomo_phase(server, requests[1], outs[1], fps)
     checkpoint_phase(server, cfg, embed)
 
@@ -973,7 +1006,12 @@ def main() -> int:
     contrastive_phase(server, audio, video, fps, kernels[0])
     torch.cuda.empty_cache()
     import_phase(server, video, fps, kernels[0])
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(cfg, server, video, fps, n_batches,
+                              audio.pop("m2"), ref_indices)
+    kernels[0]["launches_sharded_embed"] = parallel["launches"]
     log(f"done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2202,7 +2240,9 @@ def audio_phase(cfg, video: np.ndarray, fps: int, n_batches: int,
             raise AssertionError(f"-daf {daf}: a repeated request gave "
                                  "other indices")
     extras = {"mel_rows": rows, "source": (src_wave, src_sr),
-              "driving": (drv_wave, drv_sr)}
+              "driving": (drv_wave, drv_sr),
+              "m2": {"model": server.model, "examples": server.audio_examples,
+                     "tables": (server.q_table, server.t_table)}}
     del server
     torch.cuda.empty_cache()
 
@@ -3388,6 +3428,261 @@ def profiler_phase(server) -> None:
     if len(files) != 1 or named == 0 or "warm_embed_batch" not in text:
         raise AssertionError("the trace is missing or does not name the "
                              "fused_conv1x1 kernel")
+
+
+def parallel_phase(cfg, server, video: np.ndarray, fps: int, n_batches: int,
+                   m2: dict, ref_indices: np.ndarray) -> dict:
+    """Phase 13: the parallel layer at world size 1 (module docstring).
+    Returns the numbers of the ``parallel`` line."""
+    import torch
+    import torch.distributed as dist
+    from avtex_torch.classic import (anticipated_future_cost,
+                                     classic_transition_matrix,
+                                     classic_transition_matrix_sharded,
+                                     diagonal_filter_smooth,
+                                     distance_to_transition_probs,
+                                     pairwise_l2, rgb_features,
+                                     threshold_rows)
+    from avtex_torch.ops.pairwise import pairwise_l2_reference
+    from avtex_torch.config import ClassicConfig, Config
+    from avtex_torch.contrastive.model import ContrastiveTextures
+    from avtex_torch.data.pipeline import SegmentBatches
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.parallel import (make_mesh, make_sharded_train_step,
+                                      sharded_embed_from_video, shutdown)
+    from avtex_torch.synth import TextureServer
+    from avtex_torch.synth.embeddings import precompute_embeddings_from_video
+    from avtex_torch.train import create_state, make_train_step
+    from avtex_torch.train.loop import step_generator
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    out = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "mesh_s": time.perf_counter() - t0}
+    log(f"[13] parallel: world size {out['world_size']}, backend "
+        f"{out['backend']}, {mesh} ({out['mesh_s']:.2f} s to start the "
+        f"one-process world and the mesh; {smi})")
+    problems = []
+    try:
+        W, S, L = server.W, server.S, server.L
+        kw = dict(img_size=cfg.img_size, batch_size=cfg.mini_batchsize)
+
+        def best(fn, runs=2):
+            """(last result, best seconds) of synchronised runs."""
+            times = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return res, min(times)
+
+        def sharded_tables(model, vid, audio=None):
+            return tuple(sharded_embed_from_video(
+                model, mesh, vid, W, S, L, audio, tower=tower, **kw)
+                for tower in ("query", "target"))
+
+        def check_tables(label, got, want, dim):
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            cos = min(float(torch.nn.functional.cosine_similarity(
+                g, w, dim=-1).min()) for g, w in zip(got, want))
+            norm = max(float((torch.linalg.vector_norm(g, dim=-1) - 1)
+                             .abs().max()) for g in got)
+            if any(tuple(g.shape) != (L, dim) for g in got) or norm > 1e-3:
+                problems.append(f"{label}: bad tables")
+            return same, cos
+
+        # (a) phase 5's model and tables, the sharded embed
+        plain, plain_s = best(lambda: precompute_embeddings_from_video(
+            server.model, server.video, W, S, L, **kw))
+        reset_launch_counts()
+        got, sharded_s = best(lambda: sharded_tables(server.model,
+                                                     server.video))
+        launches = launch_counts()["fused_conv1x1"] // 2
+        same, cos = check_tables("(a)", got,
+                                 (server.q_table, server.t_table), 2304)
+        log(f"    (a) sharded_embed_from_video, both towers, L={L}: "
+            f"{sharded_s:.3f} s against the unsharded embed's "
+            f"{plain_s:.3f} s (best of 2 each); tables bit-identical to "
+            f"phase 5's {same} (cosine min {cos:.6f}); fused_conv1x1 "
+            f"launches {launches} an embed (phase 5: "
+            f"{LAUNCHES_PER_BATCH * n_batches})")
+        if not same:
+            problems.append("(a) the sharded tables differ from phase 5's")
+        if launches != LAUNCHES_PER_BATCH * n_batches:
+            problems.append(f"(a) {launches} kernel launches an embed")
+        out.update(embed_s=plain_s, sharded_embed_s=sharded_s,
+                   launches=launches)
+        del plain, got
+
+        # (b) a server with the mesh
+        t0 = time.perf_counter()
+        srv = TextureServer.from_frames(cfg, video, float(fps),
+                                        device="cuda", mesh=mesh)
+        load_s = time.perf_counter() - t0
+        res = srv.synthesize(seconds=10, seed=1)
+        same_idx = np.array_equal(res["result"].indices, ref_indices)
+        log(f"    (b) TextureServer.from_frames(mesh=...): {load_s:.2f} s "
+            f"(init + sharded embed {srv.embed_s:.3f} s); a 10 s request "
+            f"(seed 1): {len(res['result'].indices)} steps, the indices of "
+            f"phase 5's {same_idx}")
+        if not same_idx:
+            problems.append("(b) the mesh server's indices differ")
+        out.update(server_load_s=load_s, server_embed_s=srv.embed_s)
+        del srv, res
+        torch.cuda.empty_cache()
+
+        # (c) the DP+TP train step against the unsharded one, phase 9 (b)
+        tcfg = Config(enc_arch="slowfast", batch_size=TRAIN_BS,
+                      n_negs=TRAIN_NEGS, seed=0).derive_geometry(fps)
+        data = SegmentBatches(video, tcfg.window, tcfg.train_stride,
+                              n_negs=tcfg.n_negs,
+                              batch_size=tcfg.batch_size, seed=tcfg.seed,
+                              drop_last=True)
+        it = data.epoch(0)
+        bats = [next(it) for _ in range(2)]
+
+        def train(sharded):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = ContrastiveTextures("slowfast", 1, tcfg.temp,
+                                        dtype=torch.bfloat16, norm="group",
+                                        remat=True).cuda()
+            step = (make_sharded_train_step(model, mesh, tcfg.img_size,
+                                            True, tcfg.augment) if sharded
+                    else make_train_step(model, tcfg.img_size, True,
+                                         tcfg.augment))
+            state = create_state(model, tcfg, len(data))
+            init = {k: v.detach().clone() for k, v in state.params.items()}
+            state, _ = step(state, bats[0], step_generator(0, 0))  # warm-up
+            # the compared step starts from the initial state again
+            state.load_params(init)
+            state.load_momentum({k: torch.zeros_like(v)
+                                 for k, v in init.items()})
+            state.step = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, bats[1], step_generator(0, 1))
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            params = {k: v.detach().float().cpu()
+                      for k, v in state.params.items()}
+            return (loss, ms, params,
+                    torch.cuda.max_memory_allocated() / 2**30)
+
+        p_loss, p_ms, p_params, p_gib = train(False)
+        s_loss, s_ms, s_params, s_gib = train(True)
+        num = sum(float((s_params[k] - v).double().pow(2).sum())
+                  for k, v in p_params.items())
+        den = sum(float(v.double().pow(2).sum()) for v in p_params.values())
+        rel = (num / den) ** 0.5
+        dloss = abs(s_loss - p_loss)
+        log(f"    (c) make_sharded_train_step vs make_train_step, "
+            f"SlowFast-R50 (norm=group, bf16 + fp32 master, remat) at -bs "
+            f"{tcfg.batch_size} -negs {tcfg.n_negs}, a warm-up step, then "
+            f"one step from the same initial state, batch and draws: loss "
+            f"{s_loss!r} vs {p_loss!r} (|diff| {dloss:.3g}, tol "
+            f"{PAR_LOSS_TOL:g}); parameters after it rel L2 {rel:.3g} (tol "
+            f"{PAR_PARAM_TOL:g}); the timed step "
+            f"{s_ms:.1f} ms vs {p_ms:.1f} ms; peak {s_gib:.2f} GiB vs "
+            f"{p_gib:.2f} GiB")
+        if dloss > PAR_LOSS_TOL or not rel <= PAR_PARAM_TOL:
+            problems.append(f"(c) the sharded step differs: loss {dloss:.3g}"
+                            f", parameters {rel:.3g}")
+        out.update(train_ms=p_ms, sharded_train_ms=s_ms, train_gib=p_gib,
+                   sharded_train_gib=s_gib, train_loss_diff=dloss,
+                   train_param_rel_l2=rel)
+        del p_params, s_params
+        torch.cuda.empty_cache()
+
+        # (e) phase 5d's -m 2 model and tables, the sharded embed
+        m2_plain, m2_plain_s = best(lambda: precompute_embeddings_from_video(
+            m2["model"], server.video, W, S, L, m2["examples"], **kw))
+        got, m2_s = best(lambda: sharded_tables(m2["model"], server.video,
+                                                m2["examples"]))
+        same, cos = check_tables("(e)", got, m2["tables"], 2304 + 12288)
+        log(f"    (e) -m 2 sharded_embed_from_video (VGGish on the source "
+            f"examples): {m2_s:.3f} s against the unsharded {m2_plain_s:.3f}"
+            f" s; tables bit-identical to phase 5d's {same} (cosine min "
+            f"{cos:.6f}, tol {AUDIO_COS})")
+        if not same and cos < AUDIO_COS:
+            problems.append("(e) the -m 2 sharded tables differ")
+        out.update(m2_embed_s=m2_plain_s, m2_sharded_embed_s=m2_s)
+        del got, m2_plain
+        torch.cuda.empty_cache()
+
+        # (d) phase 7's classic chain, one sigma, sharded by row blocks
+        ccfg = ClassicConfig()
+        feats, _ = rgb_features(synthetic_video(CLASSIC_SECONDS, fps), "cuda")
+        ckw = dict(filter_size=ccfg.filter_size, stride=1, p=ccfg.q_p,
+                   alpha=ccfg.q_alpha, eps=ccfg.q_eps,
+                   thresholding=ccfg.threshold)
+        s0 = ccfg.sigmas[0]
+
+        def sweeps_of(d1):
+            return anticipated_future_cost(
+                diagonal_filter_smooth(d1, ccfg.filter_size, 1), p=ccfg.q_p,
+                alpha=ccfg.q_alpha, eps=ccfg.q_eps, return_sweeps=True)[1]
+
+        def rel(a, b):
+            return float(((a - b).abs() / b.amax(1, keepdim=True)).max())
+
+        ref, ref_s = best(lambda: classic_transition_matrix(feats, s0, **ckw))
+        (p3, sweeps), p3_s = best(lambda: classic_transition_matrix_sharded(
+            feats, mesh, s0, return_sweeps=True, **ckw))
+        # the same chain unsharded on the plain D1 (the sharded block's
+        # arithmetic), whose P3_new the sharded one must equal bit for bit
+        with fp32_exact():
+            d1_plain = pairwise_l2_reference(feats)
+        plain = threshold_rows(distance_to_transition_probs(
+            anticipated_future_cost(
+                diagonal_filter_smooth(d1_plain, ccfg.filter_size, 1),
+                p=ccfg.q_p, alpha=ccfg.q_alpha, eps=ccfg.q_eps),
+            s0)[0], ccfg.threshold)
+        # and on an fp64 D1, the nearest to exact
+        x64 = feats.double()
+        sq64 = (x64 * x64).sum(1)
+        d1_fp64 = (sq64[:, None] + sq64[None, :] - 2.0 * (x64 @ x64.t())
+                   ).clamp_min(0.0)
+        d1_fp64.fill_diagonal_(0.0)
+        d1_fp64 = d1_fp64.sqrt().float()
+        del x64
+        plain_sweeps, kernel_sweeps, fp64_sweeps = (
+            sweeps_of(d1_plain), sweeps_of(pairwise_l2(feats)),
+            sweeps_of(d1_fp64))
+        # phase 7's comparison: P3 before the threshold (thresholding=1)
+        unthresholded = dict(ckw, thresholding=1.0)
+        rel_p3 = rel(classic_transition_matrix_sharded(
+            feats, mesh, s0, **unthresholded),
+            classic_transition_matrix(feats, s0, **unthresholded))
+        same = torch.equal(p3, plain)
+        log(f"    (d) classic_transition_matrix_sharded at N={len(feats)}, "
+            f"F={feats.shape[1]}, sigma {s0}: {p3_s:.3f} s against "
+            f"classic_transition_matrix's {ref_s:.3f} s (best of 2 each); "
+            f"P3_new bit-identical to the unsharded chain on the plain D1 "
+            f"{same}, D3 sweeps {sweeps} vs its {plain_sweeps}; against "
+            f"the kernel's chain: P3 (unthresholded, phase 7's comparison) "
+            f"max |dP3| / row max {rel_p3:.3g} (tol {P3_RTOL:g}), P3_new "
+            f"{rel(p3, ref):.3g}, D3 sweeps {sweeps} vs {kernel_sweeps}; "
+            f"the chain on an fp64 D1: {fp64_sweeps} sweeps")
+        if not same or sweeps != plain_sweeps or rel_p3 > P3_RTOL:
+            problems.append(f"(d) the sharded chain differs: P3_new equal "
+                            f"{same}, sweeps {sweeps} != {plain_sweeps}, "
+                            f"P3 {rel_p3:.3g}")
+        out.update(classic_s=ref_s, sharded_classic_s=p3_s, sweeps=sweeps,
+                   kernel_sweeps=kernel_sweeps, fp64_sweeps=fp64_sweeps,
+                   classic_p3_rel=rel_p3, classic_p3_new_rel=rel(p3, ref))
+        del feats, ref, p3, d1_plain, plain, d1_fp64
+    finally:
+        shutdown()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"    phase 13: {out['seconds']:.1f} s ({nvidia_smi_line()})")
+    if problems:
+        raise AssertionError("parallel phase: " + "; ".join(problems))
+    return out
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ driving wav in ``-dadata`` and the scorer's VGGish in fp32 from a
 ``pytorch_vggish.pth`` that the test writes.
 Also: training without ``-e`` (``-bs 2 -negs 2 -epochs 1``), whose
 ``_best`` file ``-e`` then finds, the random-init opt-out, the
-missing-checkpoint error, the refusal of ``--mesh``, the pairing of
+missing-checkpoint error, ``--mesh`` (synthesis and training write the
+same files as without it), the pairing of
 ``-da`` entries with videos and the results-folder rule. ``-e -da song
 -daf Contrastive`` with and without ``-m 2`` and ``-daf_resume`` (a file
 avtex's ``save_checkpoint`` wrote): from the file the same indices, and
@@ -140,14 +141,38 @@ def test_cli_without_checkpoint(clip_dir, tmp_path, monkeypatch):
         sorted(written)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--mesh"], "'Multi-GPU'"),
-    (["-e", "--mesh"], "'Multi-GPU'"),
-])
-def test_cli_refuses_what_is_not_ported(clip_dir, tmp_path, extra, item):
-    argv = [a for a in _flags(clip_dir, tmp_path) if a != "-e"] + extra
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
+def _files(folder):
+    return {n: (folder / n).read_bytes() for n in sorted(os.listdir(folder))}
+
+
+def test_cli_mesh_synthesizes_the_same_files(clip_dir, tmp_path,
+                                             avtex_checkpoint):
+    """``-e --mesh`` on the CPU, a one-process world: the sharded embed
+    gives the tables of ``-e``, so the same files, byte for byte; the
+    world is gone afterwards."""
+    out = {}
+    for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+        [out[name]] = cli.main(_flags(clip_dir, avtex_checkpoint, "-device",
+                                      "cpu", "-rf", str(tmp_path / name),
+                                      *extra))
+    assert not torch.distributed.is_initialized()
+    np.testing.assert_array_equal(out["mesh"]["result"].indices,
+                                  out["plain"]["result"].indices)
+    files = {k: _files(tmp_path / k / "results_clip") for k in out}
+    assert any(n.endswith("_report.html") for n in files["plain"])
+    assert files["mesh"] == files["plain"]
+
+
+def test_cli_mesh_trains_the_same_checkpoint(clip_dir, tmp_path):
+    """Training ignores ``--mesh``, as avtex's does: the same files."""
+    files = {}
+    for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+        argv = [a for a in _flags(clip_dir, tmp_path / name) if a != "-e"]
+        cli.main(argv + ["-bs", "2", "-negs", "2", "-epochs", "1",
+                         "-device", "cpu", *extra])
+        files[name] = _files(tmp_path / name / "ckpt")
+    assert not torch.distributed.is_initialized()
+    assert len(files["plain"]) == 2 and files["mesh"] == files["plain"]
 
 
 def test_cli_trains_then_synthesizes_from_its_checkpoint(clip_dir, tmp_path,

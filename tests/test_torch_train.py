@@ -282,7 +282,7 @@ def test_checkpointed_blocks_give_the_same_gradients(case):
         captured = {}
         real = state.apply_gradients
 
-        def capture():
+        def capture(grad_hook=None):
             captured.update({n: p.grad.clone()
                              for n, p in model.named_parameters()})
         state.apply_gradients = capture
