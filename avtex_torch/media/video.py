@@ -3,7 +3,8 @@ avtex/media/video.py.
 
 OpenCV is imported inside the functions that need it: a machine without
 it (for example a GPU host that only serves from decoded frames) can
-import the port and gets a clear error only when it decodes or encodes.
+import the port and gets a clear error only when it decodes or encodes a
+video. ``write_frames_png`` needs no OpenCV (``avtex_torch/media/png.py``).
 """
 
 from __future__ import annotations
@@ -91,12 +92,12 @@ def write_video(frames: np.ndarray, path: str, fps: float,
 
 def write_frames_png(frames: np.ndarray, folder: str, start: int = 0) -> str:
     """Write uint8 RGB [T, H, W, 3] frames as ``<start + i:06d>.png`` in
-    ``folder`` (made if missing), as avtex does; returns ``folder``."""
-    cv2 = _cv2()
+    ``folder`` (made if missing), as avtex does; returns ``folder``. The
+    files are OpenCV's bytes (``avtex_torch.media.png``), without
+    OpenCV."""
+    from .png import encode_png
     os.makedirs(folder, exist_ok=True)
     for i, f in enumerate(np.asarray(frames)):
-        if not cv2.imwrite(os.path.join(folder, f"{start + i:06d}.png"),
-                           np.ascontiguousarray(f[:, :, ::-1])):
-            raise RuntimeError(f"could not write frame {start + i} to "
-                               f"{folder}")
+        with open(os.path.join(folder, f"{start + i:06d}.png"), "wb") as fh:
+            fh.write(encode_png(f))
     return folder

@@ -5,7 +5,9 @@ then a 3^3 conv to 32 concatenated onto the input), compression 0.5 in the
 transitions (norm, ReLU, 1^3 conv to half the channels, a 2^3 stride-2
 average pool that floors odd sizes), a 7^3 stem at stride (1, 2, 2) and a
 3^3 stride-2 max pool; ``feat_dim`` is the real final channel count
-(1024 for 121, 1664 for 169). ``densenet3d121/169``.
+(1024 for 121, 1664 for 169, 1920 for 201, 2688 for 264).
+``densenet3d121/169/201/264``; the encoder registry names 121 and 169
+only, as avtex's does.
 
 avtex convolves and pools here with flax's ``padding="SAME"``: the pad
 is ``max((ceil(n/s) - 1) * s + k - n, 0)``, its smaller half low. At
@@ -124,3 +126,5 @@ class DenseNet3D(nn.Module):
 
 densenet3d121 = functools.partial(DenseNet3D, block_config=(6, 12, 24, 16))
 densenet3d169 = functools.partial(DenseNet3D, block_config=(6, 12, 32, 32))
+densenet3d201 = functools.partial(DenseNet3D, block_config=(6, 12, 48, 32))
+densenet3d264 = functools.partial(DenseNet3D, block_config=(6, 12, 64, 48))

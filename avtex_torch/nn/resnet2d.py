@@ -4,7 +4,8 @@
   ``[B, feat_dim]`` float32 penultimate features (a 7x7 stride-2 stem of
   64 channels, a 3x3 stride-2 max pool with padding 1, stage strides 2
   from the second stage, the spatial mean); the classic baseline's
-  ``-f ResNet`` features run ``resnet2d18``.
+  ``-f ResNet`` features run ``resnet2d18``; ``resnet2d34`` is avtex's
+  deeper constructor, in no registry, as in avtex.
 - ``FrameMean2D``: a clip encoder from it, ``[B, T, H, W, 3]`` -> T folded
   into the batch -> the temporal mean of the per-frame features; the
   encoder registry's ``resnet18_2d`` / ``resnet34_2d``.
@@ -87,6 +88,7 @@ class ResNet2D(nn.Module):
 
 
 resnet2d18 = functools.partial(ResNet2D, layers=(2, 2, 2, 2))
+resnet2d34 = functools.partial(ResNet2D, layers=(3, 4, 6, 3))
 
 
 class FrameMean2D(nn.Module):

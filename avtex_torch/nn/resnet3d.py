@@ -131,11 +131,62 @@ def run_stem(stem: Callable, inputs: Tuple[torch.Tensor, ...], remat: bool,
     return torch.cat(outs)
 
 
+class _Fp32WeightGradConv3d(torch.autograd.Function):
+    """``F.conv3d`` without bias whose weight gradient is summed in fp32
+    from fp32 copies of the saved bf16 input and output gradient, then
+    rounded to bf16 once. The forward and the input gradient are torch's
+    own.
+
+    This works around torch's CPU backend, and is no difference from
+    avtex: oneDNN's bf16 conv3d weight gradient of a strided conv on a
+    one-voxel input leaves the taps that meet only padding holding
+    whatever the memory held, where they should be 0 (the last stage's
+    stride-2 conv of a ResNet at 16 px; ROADMAP.md, "Not faults").
+    ``conv_in`` takes this route for CPU tensors only."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (stride, padding, groups)
+        return F.conv3d(x, weight, None, stride, padding, 1, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, groups = ctx.geometry
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv3d_input(x.shape, weight, grad, stride,
+                                            padding, 1, groups)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv3d_weight(
+                x.float(), weight.shape, grad.float(), stride, padding, 1,
+                groups).to(weight.dtype)
+        return gx, gw, None, None, None
+
+
+def _needs_fp32_weight_grad(conv: nn.Module, x: torch.Tensor) -> bool:
+    """A bf16 strided ``nn.Conv3d`` (no bias, no dilation: the encoders'
+    convs) on a CPU tensor whose weight gradient would be taken
+    (``_Fp32WeightGradConv3d``)."""
+    return (isinstance(conv, nn.Conv3d) and x.device.type == "cpu"
+            and conv.weight.dtype == torch.bfloat16
+            and max(conv.stride) > 1 and conv.bias is None
+            and max(conv.dilation) == 1
+            and torch.is_grad_enabled() and conv.weight.requires_grad)
+
+
 def conv_in(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``conv(x)`` with ``x`` cast to the conv's weight dtype, as flax's
     ``nn.Conv(dtype=...)`` casts its input (under ``GN_F32_OUT`` a norm's
-    fp32 output reaches a bf16 conv)."""
-    return conv(x.to(conv.weight.dtype))
+    fp32 output reaches a bf16 conv). On the CPU a bf16 strided 3D conv
+    takes its weight gradient in fp32 (``_Fp32WeightGradConv3d``); CUDA
+    tensors take ``conv(x)`` as it is."""
+    x = x.to(conv.weight.dtype)
+    if _needs_fp32_weight_grad(conv, x):
+        return _Fp32WeightGradConv3d.apply(x, conv.weight, conv.stride,
+                                           conv.padding, conv.groups)
+    return conv(x)
 
 
 class _MaxPool3d(torch.autograd.Function):

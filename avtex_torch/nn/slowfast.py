@@ -22,12 +22,16 @@ stems run through the space-to-depth form of the same arithmetic
 (avtex_torch/ops/s2d_stem.py): in affine mode both whole stems (conv,
 affine, ReLU, pool) in s2d space, in group mode the fast stem's conv only.
 Otherwise both are one plain ``conv3d``. The parameters are the same
-either way, so the flag can flip on any checkpoint.
+either way, so the flag can flip on any checkpoint. ``stem_f`` and
+``stem_pool`` pick the affine s2d stems' factor and pool (avtex's
+``STEM_F`` / ``POOL_IMPL``, here fields). ``max_stage`` runs only the
+res-stages below it, an exact prefix of the full network, to split the
+embed's time by stage (avtex's ``tools/embed_stage_bench.py``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -171,17 +175,25 @@ class SlowFastR50(nn.Module):
     ``remat`` checkpoints each bottleneck as ``REMAT_POLICY`` says, and
     both stems in chunks of clips, keeping their conv outputs
     (``run_stem``; training memory). avtex checkpoints neither stem; the
-    laterals are not checkpointed, as in avtex.
+    laterals are not checkpointed, as in avtex. ``stem_f`` (None: 4, or
+    8) and ``stem_pool`` ("shuffle" or "phase") reach
+    ``fast_stem_s2d_pooled`` as its ``f`` and ``pool``. ``max_stage``
+    (avtex's field) runs only the res-stages ``i < max_stage``, each with
+    its lateral, then pools as the full network does (0: the stems and
+    their lateral only); the output is then narrower than ``feat_dim``.
     """
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  dtype: torch.dtype = torch.bfloat16, norm: str = "group",
                  fuse: Union[bool, str] = "all", s2d_stem: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, max_stage: int = 4,
+                 stem_f: Optional[int] = None, stem_pool: str = "shuffle"):
         super().__init__()
         self.layers, self.width, self.dtype, self.norm = (
             tuple(layers), width, dtype, norm)
         self.s2d_stem, self.remat = s2d_stem, remat
+        self.max_stage, self.stem_f, self.stem_pool = (
+            max_stage, stem_f, stem_pool)
         w, wf = width, width // BETA_INV
         p = norm_prefix(norm)
 
@@ -239,10 +251,11 @@ class SlowFastR50(nn.Module):
         use_s2d = self.s2d_stem and h % 4 == 0 and w % 4 == 0
         if use_s2d and self.norm == "affine":
             a0, a1 = self._named_norm(0), self._named_norm(1)
+            kw = dict(f=self.stem_f, pool=self.stem_pool)
             slow = fast_stem_s2d_pooled(slow, self.Conv_0.weight, a0.scale,
-                                        a0.bias)
+                                        a0.bias, **kw)
             fast = fast_stem_s2d_pooled(fast, self.fast_stem_kernel,
-                                        a1.scale, a1.bias)
+                                        a1.scale, a1.bias, **kw)
             return slow.permute(0, 4, 1, 2, 3), fast.permute(0, 4, 1, 2, 3)
         # [B, T, H, W, C] -> NCDHW views in channels_last_3d memory
         slow = slow.permute(0, 4, 1, 2, 3).contiguous(memory_format=CL3D)
@@ -273,6 +286,8 @@ class SlowFastR50(nn.Module):
 
         block_idx = 0
         for i, n_blocks in enumerate(self.layers):
+            if i >= self.max_stage:
+                break
             for _ in range(n_blocks):
                 slow = run_block(getattr(self, f"SFBottleneck_{block_idx}"),
                                  slow, self.remat)

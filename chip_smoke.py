@@ -232,6 +232,25 @@ non-zero, and no result line is printed):
    GroupNorm on a stem-sized bf16 activation bit-identical to
    F.group_norm(x.float()) with its gradients, and max_pool3d's backward
    equal to torch's in float64.
+15. (run before phase 14, on phase 5's server) the rest of avtex's
+   surface on the card: (a) the counterpart of avtex's
+   tools/embed_stage_bench.py: the warm both-tower embed of phase 5's first
+   batch at SlowFastR50.max_stage 0-4, interleaved, the best of 4 each;
+   per truncation ms, the delta per stage, fused_conv1x1's launches and
+   the device time by kernel kind (one profile each), and per stage the
+   bytes its slow and fast blocks' convs must move over the card's HBM
+   peak (memory clock x bus width x 2 from the device's properties);
+   max_stage=4 gives phase 5's table rows bit for bit and every
+   truncation is finite; (b) the stems' A/Bs on the warm embed of all
+   segments, turns a, b, b, a: the s2d stems against the plain ones, the
+   "shuffle" against the "phase" pool, the fast stem's f = 4 against 8
+   (tables cosine >= 0.999 per row against the shipped ones); (c)
+   resnet2d34, densenet3d201 and densenet3d264 (bf16, seeded): one
+   forward of 8 clips, ms and peak GiB, card against CPU in fp32; (d) the
+   five library examples (avtex_torch.examples) at their own sizes, each
+   writing its PNG frames to a temporary directory: s each, finite uint8
+   frames of the expected count, serve's repeat identical, audio_driven's
+   track the driving waveform.
 
 It ends with a ``{"parallel": ...}`` line (world size, backend and phase
 13's times), a JSON line describing each kernel, the nvidia-smi line, and
@@ -385,6 +404,18 @@ PAR_PARAM_TOL = 1e-4
 SF_PROBE_BS, SF_BUDGET_GIB, SF_STEPS = (4, 8), 70, 3
 AB_REPS = 2
 GN_LOSS_TOL = 1e-3
+# Phase 15: the SlowFastR50.max_stage values timed (0: the stems), each
+# the best of STAGE_REPS interleaved runs; the stem A/Bs on the warm embed
+# (field, shipped value, other value; stem_f None is 4), their tables held
+# to the shipped one's at a cosine per row as phase 4; avtex's three deeper
+# constructors and their input size (the 2D net on the clips' frames).
+STAGE_CUTS = (0, 1, 2, 3, 4)
+STAGE_REPS = 4
+STEM_ABS = (("s2d_stem", True, False), ("stem_pool", "shuffle", "phase"),
+            ("stem_f", None, 8))
+STEM_AB_COS = 0.999
+DEEP_ENCODERS = (("resnet2d34", 112), ("densenet3d201", 224),
+                 ("densenet3d264", 224))
 # device-time kinds of a training step's kernels, by name
 TRAIN_KINDS = (("conv", ("conv", "xmma", "cudnn", "wgrad", "dgrad", "fprop",
                          "sm90_", "sm80_")),
@@ -1051,6 +1082,8 @@ def main() -> int:
     parallel = parallel_phase(cfg, server, video, fps, n_batches,
                               audio.pop("m2"), ref_indices)
     kernels[0]["launches_sharded_embed"] = parallel["launches"]
+    torch.cuda.empty_cache()
+    surface_phase(server, cfg, video, fps, batch, res)
     del server, tables
     torch.cuda.empty_cache()
     default_train_phase(video, fps)
@@ -4211,6 +4244,357 @@ def parallel_phase(cfg, server, video: np.ndarray, fps: int, n_batches: int,
     log(f"    phase 13: {out['seconds']:.1f} s ({nvidia_smi_line()})")
     if problems:
         raise AssertionError("parallel phase: " + "; ".join(problems))
+    return out
+
+
+# ---- phase 15 ------------------------------------------------------------ #
+
+def hbm_bytes_per_s(props) -> float:
+    """The card's HBM peak from its properties: memory clock (kHz) x bus
+    width (bits) / 8 x 2 (double data rate)."""
+    return props.memory_clock_rate * 1e3 * props.memory_bus_width / 8 * 2
+
+
+def block_bytes(block, x_shape, y_shape, itemsize: int) -> int:
+    """The bytes an SFBottleneck's convs must move, each conv's input read
+    once and output written once (conv3 also reads the residual; the
+    projection reads its strided input)."""
+    b, c, t, h, w = x_shape
+    co, ho, wo = y_shape[1], y_shape[3], y_shape[4]
+    f = block.features
+    n = (b * c * t * h * w + b * f * t * h * w          # conv1
+         + b * f * t * h * w + b * f * t * ho * wo      # conv2
+         + b * f * t * ho * wo + 2 * b * co * t * ho * wo)  # conv3 + res
+    if block.need_proj:
+        n += b * c * t * ho * wo + b * co * t * ho * wo
+    return n * itemsize
+
+
+def stage_bytes(enc, slow, fast) -> dict:
+    """{(pathway, stage): bytes} of one tower forward, from the block
+    shapes seen by forward hooks."""
+    import torch
+    seen = {}
+    hooks = []
+    idx = 0
+    for i, n_blocks in enumerate(enc.layers):
+        for _ in range(n_blocks):
+            for k, path in ((idx, "slow"), (idx + 1, "fast")):
+                blk = getattr(enc, f"SFBottleneck_{k}")
+
+                def hook(m, args, out, key=(path, i)):
+                    seen[key] = seen.get(key, 0) + block_bytes(
+                        m, tuple(args[0].shape), tuple(out.shape),
+                        out.element_size())
+                hooks.append(blk.register_forward_hook(hook))
+            idx += 2
+    try:
+        with torch.inference_mode():
+            enc(slow, fast)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "fused_conv1x1" in low:
+        return "fused_conv1x1"
+    if "xmma" in low and "nchw" in low:
+        return "fp32 NCHW xmma"
+    if any(s in low for s in ("conv", "xmma", "cudnn", "implicit", "sm90_",
+                              "sm80_")):
+        return "other conv"
+    if any(s in low for s in ("elementwise", "vectorized", "unrolled")):
+        return "elementwise"
+    return "other"
+
+
+def surface_phase(server, cfg, video: np.ndarray, fps: int, batch: int,
+                  res: int) -> dict:
+    """Phase 15: the stage-by-stage embed (SlowFastR50.max_stage), the
+    stem A/Bs end to end, avtex's three deeper constructors and the five
+    library examples on the card."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.nn.functional as F
+    from avtex_torch.data.preprocess import preprocess_clip
+    from avtex_torch.nn import densenet3d, resnet2d
+    from avtex_torch.nn.slowfast import slowfast_pathways
+    from avtex_torch.ops import launch_counts, reset_launch_counts
+    from avtex_torch.synth.embeddings import precompute_embeddings_from_video
+    from avtex_torch.synth.pipeline import flax_style_init
+
+    t_phase = time.perf_counter()
+    out = {}
+    W, S, L = server.W, server.S, server.L
+    model = server.model
+    encs = [model.q_embedder.video_encoder, model.t_embedder.video_encoder]
+    props = torch.cuda.get_device_properties(0)
+    hbm = hbm_bytes_per_s(props)
+
+    # ---- (a) the embed stage by stage ---------------------------------- #
+    video_dev = torch.as_tensor(server.video).cuda()
+    starts = torch.arange(batch, device="cuda") * S
+    frames = video_dev[starts[:, None] + torch.arange(W, device="cuda")]
+    x = slowfast_pathways(preprocess_clip(frames, size=res, slowfast=True))
+    del frames
+
+    def embed_batch():
+        with torch.inference_mode():
+            q = model.embed(x, None, tower="query")
+            t = model.embed(x, None, tower="target")
+        torch.cuda.synchronize()
+        return q, t
+
+    def set_attr(name, value):
+        for e in encs:
+            setattr(e, name, value)
+
+    def set_stage(k):
+        set_attr("max_stage", k)
+
+    times = {k: [] for k in STAGE_CUTS}
+    launches, kinds, outs_ok = {}, {}, {}
+    try:
+        for k in STAGE_CUTS:
+            set_stage(k)
+            reset_launch_counts()
+            q, t = embed_batch()
+            launches[k] = launch_counts()["fused_conv1x1"]
+            outs_ok[k] = (bool(torch.isfinite(q).all())
+                          and bool(torch.isfinite(t).all()))
+            if k == 4:
+                same = (torch.equal(q, server.q_table[:batch])
+                        and torch.equal(t, server.t_table[:batch]))
+        for _ in range(STAGE_REPS):
+            for k in STAGE_CUTS:
+                set_stage(k)
+                t0 = time.perf_counter()
+                embed_batch()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        for k in STAGE_CUTS:
+            set_stage(k)
+            per_kind = {}
+            for name, ms in kernel_device_ms(embed_batch).items():
+                kind = kernel_kind(name)
+                per_kind[kind] = per_kind.get(kind, 0.0) + ms
+            kinds[k] = per_kind
+    finally:
+        set_stage(4)
+    best = {k: min(v) for k, v in times.items()}
+    nbytes = stage_bytes(encs[0], *x)
+    log(f"[15] (a) the warm both-tower embed of one batch of {batch} "
+        f"segments at max_stage 0-4 (phase 5's model and video), "
+        f"interleaved, best of {STAGE_REPS}; HBM peak "
+        f"{hbm / 1e12:.3f} TB/s (memory clock {props.memory_clock_rate} "
+        f"kHz x {props.memory_bus_width} bits x 2)")
+    names = ["stems"] + [f"res{i + 2}" for i in range(4)]
+    all_kinds = sorted({kk for v in kinds.values() for kk in v})
+    for k in STAGE_CUTS:
+        delta = best[k] - best[k - 1] if k else best[k]
+        dk = {kk: kinds[k].get(kk, 0.0) - (kinds[k - 1].get(kk, 0.0)
+                                           if k else 0.0) for kk in all_kinds}
+        line = (f"      max_stage={k} (+{names[k]}): {best[k]:.2f} ms "
+                f"(runs {', '.join(f'{v:.2f}' for v in times[k])}), delta "
+                f"{delta:+.2f} ms, fused_conv1x1 launches {launches[k]}; "
+                f"device ms by kind of the delta: "
+                + ", ".join(f"{kk} {v:+.2f}" for kk, v in dk.items()))
+        if k:
+            fb = 2 * nbytes[("fast", k - 1)]  # both towers
+            sb = 2 * nbytes[("slow", k - 1)]
+            line += (f"; fast res{k + 1} activations {fb / 1e9:.3f} GB = "
+                     f"{fb / hbm * 1e3:.3f} ms at the HBM peak, slow "
+                     f"{sb / 1e9:.3f} GB = {sb / hbm * 1e3:.3f} ms")
+        log(line)
+    out["stages"] = {"ms": best, "runs": times, "launches": launches,
+                     "kinds": kinds,
+                     "bytes": {f"{p}{i}": v for (p, i), v in nbytes.items()},
+                     "hbm_bytes_s": hbm}
+    if not same:
+        raise AssertionError("max_stage=4's batch differs from phase 5's "
+                             "tables")
+    if not all(outs_ok.values()):
+        raise AssertionError(f"a truncated embed is not finite: {outs_ok}")
+    if launches[4] != LAUNCHES_PER_BATCH or launches[0] != 0 or any(
+            launches[k] < launches[k - 1] for k in STAGE_CUTS[1:]):
+        raise AssertionError(f"fused_conv1x1 launches per truncation: "
+                             f"{launches}")
+    del x, video_dev
+
+    # ---- (b) the stems end to end -------------------------------------- #
+    def embed_all():
+        tabs = precompute_embeddings_from_video(
+            model, server.video, W, S, L, img_size=res,
+            batch_size=cfg.mini_batchsize)
+        torch.cuda.synchronize()
+        return tabs
+
+    log(f"    (b) stem A/Bs on the warm embed of all {L} segments, turns "
+        f"a, b, b, a after one warm-up of b; tables against the default's, "
+        f"cosine per row >= {STEM_AB_COS}")
+    ab = {}
+    for attr, a_val, b_val in STEM_ABS:
+        runs = {a_val: [], b_val: []}
+        cos = None
+        try:
+            set_attr(attr, b_val)
+            embed_all()
+            for val in (a_val, b_val, b_val, a_val):
+                set_attr(attr, val)
+                t0 = time.perf_counter()
+                tabs = embed_all()
+                runs[val].append(time.perf_counter() - t0)
+                if val == b_val:
+                    c = min(float(F.cosine_similarity(tab, ref, dim=-1).min())
+                            for tab, ref in zip(tabs, (server.q_table,
+                                                       server.t_table)))
+                    cos = c if cos is None else min(cos, c)
+                del tabs
+        finally:
+            set_attr(attr, a_val)
+        sa, sb = min(runs[a_val]), min(runs[b_val])
+        log(f"      {attr} {a_val!r} (default) {sa:.4f} s (runs "
+            f"{', '.join(f'{v:.4f}' for v in runs[a_val])}) vs {b_val!r} "
+            f"{sb:.4f} s (runs {', '.join(f'{v:.4f}' for v in runs[b_val])})"
+            f": {100 * (sb - sa) / sa:+.1f}%; cosine min {cos:.6f}")
+        ab[f"{attr}={b_val}"] = {"default_s": sa, "s": sb, "cos": cos,
+                                 "runs": {str(k): v for k, v in runs.items()}}
+        if cos < STEM_AB_COS:
+            raise AssertionError(f"{attr}={b_val!r} moves the tables: "
+                                 f"cosine {cos}")
+    out["stem_ab"] = ab
+    torch.cuda.empty_cache()
+
+    # ---- (c) avtex's three deeper constructors ------------------------- #
+    log(f"    (c) resnet2d34 / densenet3d201 / densenet3d264, bf16, "
+        f"norm='group', seeded flax-style weights: one synchronised forward "
+        f"of 8 clips of {W} frames after a warm-up (224^2; resnet2d34 on "
+        f"their 8 x {W} frames at 112^2); card vs CPU in fp32 (TF32 off) on "
+        f"one clip of 16 x 64^2, cosine >= {ENC_COS}")
+    idx = torch.from_numpy(np.arange(8)[:, None] * (L // 8) * S
+                           + np.arange(W)[None]).cuda()
+    video_dev = torch.from_numpy(video).cuda()
+    small = preprocess_clip(torch.from_numpy(video[:16][None]), 64)
+    enc_out = {}
+    for arch, size in DEEP_ENCODERS:
+        factory = getattr(resnet2d if arch.startswith("resnet")
+                          else densenet3d, arch)
+        cpu = factory(dtype=torch.float32)
+        state = flax_style_init(cpu, 0)
+        bf = factory(dtype=torch.bfloat16)
+        bf.load_state_dict(state)
+        bf = bf.cuda().eval()
+        clips = preprocess_clip(video_dev[idx], size)
+        feed = clips.flatten(0, 1) if arch.startswith("resnet") else clips
+        with torch.inference_mode():
+            bf(feed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            y = bf(feed)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(y).all())
+        del bf, clips, feed
+        cpu.load_state_dict(state)
+        x_small = small.flatten(0, 1) if arch.startswith("resnet") else small
+        with torch.inference_mode():
+            want = cpu.eval()(x_small)
+            with fp32_exact():
+                got = cpu.cuda()(x_small.cuda()).cpu()
+        cos = float(F.cosine_similarity(got, want, dim=-1).min())
+        del cpu
+        torch.cuda.empty_cache()
+        log(f"      {arch}: {tuple(y.shape)}, {ms:.1f} ms a forward, peak "
+            f"{peak:.2f} GiB; card vs CPU cosine {cos:.7f}")
+        enc_out[arch] = {"ms": ms, "peak_gib": peak, "cos_cpu": cos}
+        if not finite or cos < ENC_COS:
+            raise AssertionError(f"{arch} failed its gates")
+    out["encoders"] = enc_out
+    del video_dev
+
+    # ---- (d) the library examples -------------------------------------- #
+    from avtex_torch.examples import (audio_driven, classic, quickstart,
+                                      serve, sharded_embed)
+    from avtex_torch.media import read_wav
+    log("    (d) the five library examples on the card at their own sizes, "
+        "each writing its PNG frames (no OpenCV here) to a temporary "
+        "directory")
+
+    def texture_ok(frames, n, folder):
+        return (frames.dtype == np.uint8 and frames.shape == (n, 32, 32, 3)
+                and len(os.listdir(folder)) == n)
+
+    ex_out = {}
+    problems = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        for name, module in (("quickstart", quickstart), ("serve", serve),
+                             ("classic", classic),
+                             ("sharded_embed", sharded_embed),
+                             ("audio_driven", audio_driven)):
+            d = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            r = module.main(device="cuda", out_dir=d)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            if name in ("quickstart", "audio_driven"):
+                c = module.CONFIG
+                n = c.window + (len(r["result"].indices) - 1) * c.stride
+                ok = (np.isfinite(r["losses"]).all()
+                      and texture_ok(r["frames"], n,
+                                     os.path.join(d, "texture")))
+                if name == "audio_driven":
+                    drv, sr = read_wav(os.path.join(d, "driving.wav"))
+                    ok = (ok and r["sample_rate"] == sr
+                          and np.array_equal(r["audio"], drv)
+                          and os.path.exists(os.path.join(d, "texture.wav")))
+                detail = (f"losses {[round(v, 3) for v in r['losses']]}, "
+                          f"{len(r['result'].indices)} steps, {n} frames")
+            elif name == "serve":
+                reqs = r["requests"]
+                ok = np.array_equal(reqs["a"]["result"].indices,
+                                    reqs["a2"]["result"].indices) and all(
+                    texture_ok(reqs[k]["frames"], int(sec * serve.FPS),
+                               os.path.join(d, f"request_{k}"))
+                    for k, sec in (("a", 3), ("b", 5), ("c", 3), ("a2", 3)))
+                detail = (f"L={r['server'].L}, requests "
+                          + ", ".join(f"{k} {len(v['frames'])} frames"
+                                      for k, v in reqs.items())
+                          + "; a2 repeats a")
+            elif name == "classic":
+                sw = r["sweep"]["sigma_results"]
+                ok = all(texture_ok(e["frames"], 21, os.path.join(
+                    d, f"loop_classic_m1_sigma{sig}"))
+                    for sig, e in sw.items()) and np.isfinite(
+                        r["probs"]).all()
+                detail = (f"jumps {r['sweep']['jump_counts']}, matrix "
+                          f"{r['probs'].shape}")
+            else:
+                ok = (r["world_size"] == 1 and np.isfinite(r["table"]).all()
+                      and float(np.abs(r["table"] - r["unsharded"]).max())
+                      <= 2e-2)
+                detail = (f"table {r['table'].shape} over "
+                          f"{r['world_size']} process, max |sharded - "
+                          f"unsharded| "
+                          f"{float(np.abs(r['table'] - r['unsharded']).max()):.3g}")
+            log(f"      {name}: {s:.2f} s; {detail}")
+            ex_out[name] = {"s": s, "ok": bool(ok)}
+            if not ok:
+                problems.append(name)
+            del r
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["examples"] = ex_out
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"    phase 15: {out['seconds']:.1f} s ({nvidia_smi_line()})")
+    if problems:
+        raise AssertionError(f"examples failed their gates: {problems}")
     return out
 
 

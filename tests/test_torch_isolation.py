@@ -35,7 +35,11 @@ for name in ("avtex_torch.audio.mel", "avtex_torch.audio.params",
              "avtex_torch.baselines.audio_nn",
              "avtex_torch.baselines.random_walks",
              "avtex_torch.baselines.shift",
-             "avtex_torch.cli.baselines_main"):
+             "avtex_torch.cli.baselines_main", "avtex_torch.media.png",
+             "avtex_torch.examples.quickstart", "avtex_torch.examples.serve",
+             "avtex_torch.examples.classic",
+             "avtex_torch.examples.sharded_embed",
+             "avtex_torch.examples.audio_driven"):
     assert name in names, name
 """
 

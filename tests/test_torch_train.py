@@ -26,7 +26,8 @@ can answer it, and held to a stated momentum tolerance:
   (``use_fast_variance=False``). flax's default E[x^2] - E[x]^2 in fp32
   cancels on one clip of this batch and moves avtex's gradient there by
   3.5% from an fp64 evaluation, where the port stays within 1e-5
-  (``test_flax_fast_variance_moves_avtex_gradients``).
+  (``tests/test_torch_train_video.py::
+  test_flax_fast_variance_moves_avtex_gradients``).
 - The momentum traces are held to a relative L2 error of 1e-2 per
   tensor (``SF_MOMENTUM_TOL``; 3.3e-3 measured), not rtol 1e-4: clip by
   clip, both frameworks' fp32 gradients of this network lie up to 2e-3
@@ -44,12 +45,13 @@ Also: checkpointed blocks give the same gradients (1e-6) under both
 ``REMAT_POLICY`` settings, the step's preprocessing in chunks gives one
 chunk's inputs bit for bit, the bf16 model steps an fp32 master copy,
 ``train_video`` at avtex's default ``-bs 32 -negs 20`` builds batches of
-32 + 32 x 21 clips, avtex's files resume in the port and the
-port's in avtex, and ``train_video``'s resume, early stop, start epoch,
-best/latest files and errors.
+32 + 32 x 21 clips, and avtex's files resume in the port and the
+port's in avtex. ``train_video``'s resume, early stop, start epoch,
+best/latest files and errors, and the SlowFast case's GroupNorm variance
+check, are in tests/test_torch_train_video.py (one file each keeps the
+``--dist loadfile`` workers' shares short).
 """
 
-import dataclasses
 import functools
 import os
 
@@ -74,19 +76,12 @@ from avtex_torch.convert import convert_opt_state, convert_params
 from avtex_torch.data.pipeline import SegmentBatches
 from avtex_torch.data.preprocess import preprocess_clip
 from avtex_torch.nn.slowfast import slowfast_pathways
-from avtex_torch.train import (TrainConfigError, create_state,
-                               make_lr_schedule, make_train_step,
-                               restore_checkpoint, save_checkpoint,
-                               train_video)
+from avtex_torch.train import (create_state, make_lr_schedule,
+                               make_train_step, restore_checkpoint,
+                               save_checkpoint, train_video)
 from avtex_torch.train.loop import step_generator
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture
-def no_onednn():
-    with torch.backends.mkldnn.flags(enabled=False):
-        yield
 
 
 SMALL_SF = dict(width=16, layers=(1, 1, 1, 1))
@@ -222,43 +217,6 @@ def test_three_sgd_steps_match_avtex(case, monkeypatch, tmp_path):
     assert lrs == pytest.approx([lr, lr, lr / 10])
     _assert_state_matches(state, jax_states[-1],
                           SF_MOMENTUM_TOL if case == "slowfast" else None)
-
-
-@pytest.mark.usefixtures("no_onednn")
-def test_flax_fast_variance_moves_avtex_gradients():
-    """The clip of the SlowFast case's second batch on which flax's default
-    GroupNorm variance cancels: from avtex's parameters after the first
-    step, the port's encoder gradient agrees with avtex's two-pass one
-    within 1e-4 of each tensor's largest element, and avtex's default one
-    is off by over 1e-2."""
-    _, states, _, _ = _avtex_run("slowfast")
-    tree = jax.tree.map(np.asarray, dict(
-        states[1].params["params"]["t_embedder"]["video_encoder"]))
-    t = _batches(SegmentBatches, CASES["slowfast"], None)[1]["t_frames"]
-    with torch.no_grad():
-        slow, fast = slowfast_pathways(preprocess_clip(
-            torch.from_numpy(np.ascontiguousarray(t[0, 4:5])), 32, True))
-    slow, fast = slow.numpy(), fast.numpy()
-    w = np.random.default_rng(4).standard_normal((1, 576)).astype(np.float32)
-    port = ContrastiveTextures("slowfast", 1, dtype=torch.float32,
-                               **SMALL_SF).q_embedder.video_encoder
-    holder = torch.nn.Module()
-    holder.add_module("enc", port)
-    holder.load_state_dict(convert_params({"enc": tree}, holder))
-    (port(torch.from_numpy(slow), torch.from_numpy(fast))
-     * torch.from_numpy(w)).sum().backward()
-    errs = {}
-    for two_pass in (True, False):
-        with pytest.MonkeyPatch.context() as mp:
-            _avtex_patches(mp, two_pass)
-            m = JaxSF(**SMALL_SF, dtype=jnp.float32)
-            gj = jax.grad(lambda p: (m.apply({"params": p}, slow, fast)
-                                     * w).sum())(tree)
-        want = convert_params({"enc": jax.tree.map(np.asarray, gj)}, holder)
-        errs[two_pass] = max(
-            float((q.grad - want[n]).abs().max() / want[n].abs().max())
-            for n, q in holder.named_parameters())
-    assert errs[True] <= 1e-4 and errs[False] > 1e-2, errs
 
 
 def test_lr_schedule_matches_avtex():
@@ -440,96 +398,14 @@ def test_avtex_reads_and_resumes_a_port_file(tmp_path):
     _assert_state_matches(state, after)
 
 
-# ---- train_video ------------------------------------------------------- #
-
-@pytest.fixture
-def tiny_cfg():
-    return Config(enc_arch="resnet10", model_type=1, img_size=32,
-                  window=4, train_stride=2, stride=2, n_negs=4,
-                  batch_size=4, lr=0.05, lr_steps=1, epochs=2, seed=0,
-                  early_stop_loss=1e-9)
-
-
-# 30 frames: 12 train queries, three batches of 4 an epoch
-SPE = 3
-
-
-@pytest.fixture
-def tiny_video():
-    return _video(t=30)
-
-
-def test_resume_replays_the_uninterrupted_run(tmp_path, tiny_cfg,
-                                              tiny_video):
-    """Stop after epoch 2 of 3 and resume from _latest: the same losses,
-    parameters, momentum and step, bit for bit (bf16 model, augmentation
-    on, an LR boundary inside)."""
-    full, full_hist = train_video(tiny_cfg, tiny_video, epochs=3,
-                                  device="cpu")
-    _, h1 = train_video(tiny_cfg, tiny_video, epochs=2, device="cpu",
-                        ckpt_dir=str(tmp_path), ckpt_name="r")
-    res, h2 = train_video(tiny_cfg, tiny_video, epochs=3, device="cpu",
-                          resume=str(tmp_path / "r_latest"),
-                          ckpt_dir=str(tmp_path), ckpt_name="r")
-    assert len(h1) == 2 and len(h2) == 1
-    assert h1 + h2 == full_hist
-    assert res.step == full.step == 3 * SPE
-    mom_a, mom_b = full.momentum(), res.momentum()
-    for name, p in full.params.items():
-        assert torch.equal(p, res.params[name]), name
-        assert torch.equal(mom_a[name], mom_b[name]), name
-    for (n, a), b in zip(full.model.named_parameters(),
-                         res.model.parameters()):
-        assert a.dtype == torch.bfloat16 or "GroupNorm" in n
-        assert torch.equal(a, b), n
-
-
-def test_best_and_latest_files(tmp_path, tiny_cfg, tiny_video):
-    _, hist = train_video(tiny_cfg, tiny_video, device="cpu",
-                          ckpt_dir=str(tmp_path), ckpt_name="b")
-    assert (tmp_path / "b_latest").exists() and (tmp_path / "b_best").exists()
-    payload = restore_checkpoint(str(tmp_path / "b_latest"))
-    assert payload["epoch"] == 2 and payload["step"] == 2 * SPE
-    assert payload["best_loss"] == pytest.approx(min(hist), rel=1e-6)
-    assert int(payload["opt_state"]["1"]["1"]["count"]) == 2 * SPE
-    # avtex reads the port's trained file without templates too
-    assert jax_ckpt.restore_checkpoint(str(tmp_path / "b_best"),
-                                       None)["arch"] == "resnet10"
-
-
-def test_early_stop_and_start_epoch(tiny_cfg, tiny_video):
-    cfg = dataclasses.replace(tiny_cfg, early_stop_loss=1e6)
-    _, hist = train_video(cfg, tiny_video, epochs=10, device="cpu")
-    assert len(hist) == 1
-    cfg = dataclasses.replace(tiny_cfg, start_epoch=1)
-    state, hist = train_video(cfg, tiny_video, epochs=3, device="cpu")
-    assert len(hist) == 2 and state.step == 2 * SPE
-
-
-def test_train_video_errors(tmp_path, tiny_cfg, tiny_video, monkeypatch):
-    with pytest.raises(FileNotFoundError, match="No checkpoint"):
-        train_video(tiny_cfg, tiny_video, epochs=1, device="cpu",
-                    resume=str(tmp_path / "missing"))
-    with pytest.raises(TrainConfigError, match="audio"):
-        train_video(dataclasses.replace(tiny_cfg, model_type=2), tiny_video,
-                    device="cpu")
-    with pytest.raises(TrainConfigError, match="ckpt_name"):
-        train_video(tiny_cfg, tiny_video, device="cpu",
-                    ckpt_dir=str(tmp_path))
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train_video(tiny_cfg, tiny_video)
-
-
 def test_train_video_at_the_default_batch_shapes(monkeypatch):
     """avtex's default ``-bs 32 -negs 20`` (``Config``'s defaults): every
     step gets 32 query windows and 32 x 21 target windows, 704 clips,
     and trains on all of them. A width-8 ResNet10 on 32 px frames of a
-    tiny video; one epoch of two steps. Not 16 px: there the last stage's
+    tiny video; one epoch of two steps. (At 16 px the last stage's
     stride-2 conv gets a one-voxel input, where torch's oneDNN bf16
-    conv3d weight gradient on the CPU leaves the taps that meet only
-    padding unwritten (ROADMAP.md Queue 3), a fault of torch's CPU
-    backend that the card's cuDNN does not share."""
+    conv3d weight gradient on the CPU needs the port's fp32 guard:
+    tests/test_torch_conv_guard.py.)"""
     from avtex_torch.train import loop
     cfg = Config(enc_arch="resnet10", img_size=32, window=4, stride=2,
                  train_stride=1, epochs=1, seed=0, early_stop_loss=1e-9)
