@@ -28,6 +28,7 @@ import numpy as np
 from avtex_torch.contrastive.segments import (gather_windows,
                                               require_segments,
                                               sample_negatives)
+from avtex_torch.obs.spans import span
 
 
 class SegmentBatches:
@@ -72,23 +73,27 @@ class SegmentBatches:
         rng = (self.rng if epoch is None
                else np.random.default_rng((self.seed, epoch)))
         order = rng.permutation(self.n_train)
-        for b0 in range(0, self.n_train, self.batch_size):
+        for k, b0 in enumerate(range(0, self.n_train, self.batch_size)):
             ids = order[b0:b0 + self.batch_size]
             if self.drop_last and len(ids) < self.batch_size:
                 break
-            t_ids = np.stack([
-                np.concatenate((
-                    [i + 1],
-                    sample_negatives(i, self.n_train, self.n_negs, rng)))
-                for i in ids])
-            batch = {
-                "q_frames": self.windows[ids],
-                "t_frames": self.windows[t_ids],
-                "q_ids": ids.astype(np.int64),
-            }
-            if self.audio is not None:
-                batch["q_audio"] = self._audio_for(ids)
-                batch["t_audio"] = self._audio_for(t_ids)
+            with span("data.gather", epoch=epoch, batch=k) as rec:
+                t_ids = np.stack([
+                    np.concatenate((
+                        [i + 1],
+                        sample_negatives(i, self.n_train, self.n_negs, rng)))
+                    for i in ids])
+                batch = {
+                    "q_frames": self.windows[ids],
+                    "t_frames": self.windows[t_ids],
+                    "q_ids": ids.astype(np.int64),
+                }
+                if self.audio is not None:
+                    batch["q_audio"] = self._audio_for(ids)
+                    batch["t_audio"] = self._audio_for(t_ids)
+                if rec is not None:
+                    rec.attrs["bytes"] = sum(a.nbytes
+                                             for a in batch.values())
             yield batch
 
 
@@ -114,7 +119,10 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with span("data.wait") as rec:
+            if rec is not None:
+                rec.attrs["queued"] = q.qsize()
+            item = q.get()
         if item is end:
             if failure:
                 raise failure[0]

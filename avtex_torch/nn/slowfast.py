@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avtex_torch.obs.spans import span
 from avtex_torch.ops.fused_matmul import fused_conv1x1
 from avtex_torch.ops.s2d_stem import fast_stem_s2d, fast_stem_s2d_pooled
 
@@ -278,8 +279,8 @@ class SlowFastR50(nn.Module):
         # the stems' activations per clip, before the pools
         clip = ((self.width * slow.shape[1] + self.width // BETA_INV
                  * fast.shape[1]) * ((h + 1) // 2) * ((w + 1) // 2))
-        # a named range, so a profile can attribute the stems' device time
-        with torch.profiler.record_function(STEMS_RANGE):
+        # a named span, so a profile can attribute the stems' device time
+        with span(STEMS_RANGE):
             slow, fast = run_stem(self._stems, (slow, fast), self.remat,
                                   clip)
         slow = torch.cat([slow, self._lateral(fast, 2)], dim=1)

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avtex_torch.obs.spans import span
+
 WIDTHS = ((64,), (128,), (256, 256), (512, 512))
 # a named range, so a profile can attribute VGGish's device time
 VGGISH_RANGE = "vggish"
@@ -41,7 +43,7 @@ class VGGish(nn.Module):
         self.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with torch.profiler.record_function(VGGISH_RANGE):
+        with span(VGGISH_RANGE):
             if x.ndim == 4:  # avtex's [B, frames, bands, 1]
                 x = x[..., 0]
             x = x[:, None].to(self.dtype).contiguous(

@@ -1,8 +1,7 @@
-"""Wall-clock meters (the port's copy of avtex/obs/meters.py)."""
+"""Running meters (the port's copy of avtex/obs/meters.py's
+``AverageMeter``)."""
 
 from __future__ import annotations
-
-import time
 
 
 class AverageMeter:
@@ -23,14 +22,3 @@ class AverageMeter:
         self.count += n
         self.avg = self.sum / max(self.count, 1)
 
-
-class Timer:
-    """Context-manager stopwatch; ``with Timer() as t: ...; t.elapsed``."""
-
-    def __enter__(self) -> "Timer":
-        self.start = time.perf_counter()
-        self.elapsed = 0.0
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.elapsed = time.perf_counter() - self.start

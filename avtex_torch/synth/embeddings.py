@@ -25,6 +25,7 @@ from avtex_torch.contrastive.model import ContrastiveTextures
 from avtex_torch.data.preprocess import preprocess_clip
 from avtex_torch.device import module_device
 from avtex_torch.nn.slowfast import slowfast_pathways
+from avtex_torch.obs.spans import span
 
 
 def _padded_starts(num_segments: int, stride: int, batch_size: int
@@ -72,23 +73,34 @@ def _embed_batches(model: ContrastiveTextures, video_u8, window: int,
                    towers: Sequence[str], audio=None
                    ) -> Tuple[torch.Tensor, ...]:
     """One table per tower over the windows at ``starts`` (a whole number
-    of batches), with ``audio`` rows aligned to ``starts`` (or None)."""
+    of batches, padded by repeating the last start), with ``audio`` rows
+    aligned to ``starts`` (or None)."""
     device = module_device(model)
-    video = torch.as_tensor(video_u8).to(device)  # one transfer
     slowfast = model.arch == "slowfast"
-    offsets = torch.arange(window, device=device)
     outs = [[] for _ in towers]
-    with torch.inference_mode():
-        for b0 in range(0, len(starts), batch_size):
-            st = torch.from_numpy(starts[b0:b0 + batch_size]).to(device)
-            frames = video[st[:, None] + offsets[None, :]]  # [B, W, H, W, 3]
-            x = preprocess_clip(frames, size=img_size, slowfast=slowfast)
-            if slowfast:
-                x = slowfast_pathways(x)
-            a = None if audio is None else audio[b0:b0 + batch_size]
-            for out, tower in zip(outs, towers):
-                out.append(model.embed(x, a, tower=tower))
-    return tuple(torch.cat(o, dim=0) for o in outs)
+    with span("embed.video") as rec:
+        if rec is not None:
+            padded = int((starts == starts[-1]).sum()) - 1
+            rec.attrs.update(segments=len(starts) - padded,
+                             padded_rows=padded)
+        with span("embed.upload"):
+            video = torch.as_tensor(video_u8).to(device)  # one transfer
+        offsets = torch.arange(window, device=device)
+        with torch.inference_mode():
+            for b0 in range(0, len(starts), batch_size):
+                with span("embed.preprocess"):
+                    st = torch.from_numpy(starts[b0:b0 + batch_size]).to(
+                        device)
+                    frames = video[st[:, None] + offsets[None, :]]
+                    x = preprocess_clip(frames, size=img_size,
+                                        slowfast=slowfast)
+                    if slowfast:
+                        x = slowfast_pathways(x)
+                a = None if audio is None else audio[b0:b0 + batch_size]
+                with span("embed.towers"):
+                    for out, tower in zip(outs, towers):
+                        out.append(model.embed(x, a, tower=tower))
+        return tuple(torch.cat(o, dim=0) for o in outs)
 
 
 def embed_segments_from_video(model: ContrastiveTextures, video_u8,

@@ -51,6 +51,7 @@ from avtex_torch.data.preprocess import (apply_augment, draw_augment_params,
 from avtex_torch.device import module_device, resolve_device
 from avtex_torch.nn.slowfast import slowfast_pathways
 from avtex_torch.obs import AverageMeter
+from avtex_torch.obs.spans import span
 from avtex_torch.synth.pipeline import _DTYPES, flax_style_init
 from avtex_torch.utils.batching import row_chunks
 
@@ -226,27 +227,39 @@ def make_train_step(model: ContrastiveTextures, size: int, slowfast: bool,
             x = torch.from_numpy(np.ascontiguousarray(batch[key][sel]))
             return x.to(dev, dtype)
 
-        q, t = upload("q_frames"), upload("t_frames")
-        b, n = t.shape[:2]
-        t = t.reshape((-1,) + t.shape[2:])
-        q_draws = t_draws = None
-        if augment:
-            q_draws = _draws(b_all, sel, q, size, generator)
-            t_draws = _draws(b_all * n, slice(sel.start * n, sel.stop * n),
-                             t, size, generator)
-        q_in = _prep_pathways(q, q_draws, size, slowfast, in_dtype)
-        t_flat = _prep_pathways(t, t_draws, size, slowfast, in_dtype)
-        del q, t
-        if slowfast:
-            t_in = tuple(p.reshape((b, n) + p.shape[1:]) for p in t_flat)
-        else:
-            t_in = t_flat.reshape((b, n) + t_flat.shape[1:])
-        audio = [upload(k, torch.float32) for k in ("q_audio", "t_audio")]
-        logits = model(q_in, t_in, *audio)
-        loss = info_nce_from_logits(logits)
-        acc = (logits.argmax(dim=-1) == 0).float().mean()
-        loss.backward()
-        state.apply_gradients(grad_hook)
+        with span("train.step") as rec:
+            if rec is not None:  # a stand-in state may keep no count
+                rec.attrs["step"] = getattr(state, "step", None)
+            with span("train.upload"):
+                q, t = upload("q_frames"), upload("t_frames")
+                audio = [upload(k, torch.float32)
+                         for k in ("q_audio", "t_audio")]
+            b, n = t.shape[:2]
+            t = t.reshape((-1,) + t.shape[2:])
+            q_draws = t_draws = None
+            if augment:
+                with span("train.draws"):
+                    q_draws = _draws(b_all, sel, q, size, generator)
+                    t_draws = _draws(b_all * n,
+                                     slice(sel.start * n, sel.stop * n),
+                                     t, size, generator)
+            with span("train.augment"):
+                q_in = _prep_pathways(q, q_draws, size, slowfast, in_dtype)
+                t_flat = _prep_pathways(t, t_draws, size, slowfast,
+                                        in_dtype)
+            del q, t
+            if slowfast:
+                t_in = tuple(p.reshape((b, n) + p.shape[1:]) for p in t_flat)
+            else:
+                t_in = t_flat.reshape((b, n) + t_flat.shape[1:])
+            with span("train.forward"):
+                logits = model(q_in, t_in, *audio)
+                loss = info_nce_from_logits(logits)
+                acc = (logits.argmax(dim=-1) == 0).float().mean()
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                state.apply_gradients(grad_hook)
         return state, {"loss": loss.detach(), "acc": acc.detach()}
 
     return step

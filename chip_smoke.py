@@ -474,6 +474,14 @@ def dev_ms(ev) -> float:
                    getattr(ev, "self_cuda_time_total", 0)) / 1e3
 
 
+def program_ranges(start_ns: int) -> set:
+    """Names of the port's spans (``avtex_torch.obs.spans``) recorded
+    since ``start_ns``: each is a profiler range, which may also show as a
+    device-side annotation with its name, not a kernel."""
+    from avtex_torch.obs import spans
+    return {s.name for s in spans.collect(start_ns, time.time_ns())}
+
+
 def kernel_device_ms(fn) -> dict:
     """{kernel name: device ms} of one warm call of ``fn``. The call is
     the profiler's second step: its first step would drop the window's
@@ -488,6 +496,7 @@ def kernel_device_ms(fn) -> dict:
                     if getattr(e, "device_type", None) == cuda
                     and dev_ms(e) > 0})
 
+    t0 = time.time_ns()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=ready) as prof:
@@ -495,7 +504,8 @@ def kernel_device_ms(fn) -> dict:
             fn()
             torch.cuda.synchronize()
             prof.step()
-    return out
+    ranges = program_ranges(t0)
+    return {k: v for k, v in out.items() if k not in ranges}
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2870,17 +2880,22 @@ def profile_embed(embed, wall_s: float, label: str = "",
     from torch.profiler import ProfilerActivity, profile
     from avtex_torch.nn.slowfast import STEMS_RANGE
     from avtex_torch.nn.vggish import VGGISH_RANGE
+    t0 = time.time_ns()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         embed()
 
     cuda = torch.autograd.DeviceType.CUDA
     ranges = (STEMS_RANGE, VGGISH_RANGE)
-    # (a named range may also show as a device-side annotation: not a
-    # kernel)
+    # (a named range, the port's spans included, may also show as a
+    # device-side annotation: not a kernel)
+    spans = program_ranges(t0) | set(ranges)
     kernels = [(dev_ms(e), e.count, e.key) for e in prof.key_averages()
                if getattr(e, "device_type", None) == cuda and dev_ms(e) > 0
-               and e.key not in ranges]
+               and e.key not in spans]
+    annotations = sum(dev_ms(e) for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == cuda
+                      and e.key in spans)
     total = sum(k[0] for k in kernels)
     if not total:
         log("    profiler: no device time recorded")
@@ -2899,7 +2914,8 @@ def profile_embed(embed, wall_s: float, label: str = "",
         f"({100 * fused / total:.1f}%); stems {stems:.1f} ms "
         f"({100 * stems / total:.1f}%)"
         + (f"; VGGish {vggish:.1f} ms ({100 * vggish / total:.1f}%)"
-           if vggish else ""))
+           if vggish else "")
+        + f"; named ranges' device annotations left out {annotations:.1f} ms")
     if not detail:
         return
     for ms, count, key in sorted(kernels, reverse=True)[:8]:
